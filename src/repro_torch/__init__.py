@@ -1,5 +1,5 @@
-"""repro_torch — m4's open-loop inference in PyTorch, with hand-written
-CUDA kernels for Hopper (`sm_90a`).
+"""repro_torch — m4 and flowSim in PyTorch, with hand-written CUDA kernels
+for Hopper (`sm_90a`).
 
 The package mirrors the layout of the JAX package `repro`, which stays the
 reference it is held against, but imports nothing of it (nor `jax`):
@@ -7,18 +7,24 @@ reference it is held against, but imports nothing of it (nor `jax`):
     repro_torch.net        FatTree, NetConfig, Flow
     repro_torch.data       the Table-2 traffic generator
     repro_torch.nn         linear / mlp / gru_cell on (d_in, d_out) weights
-    repro_torch.kernels    the fused GRU pair and bipartite GraphSAGE round:
-                           CUDA kernels on a card, plain PyTorch on the CPU
-    repro_torch.core       M4Config, the model, the open-loop event loop
-    repro_torch.sim        SimRequest / SimResult and the backend registry
+    repro_torch.kernels    the fused GRU pair, the bipartite GraphSAGE round
+                           and flowSim's water-filling row-min: CUDA
+                           kernels on a card, plain PyTorch on the CPU
+    repro_torch.core       M4Config, the model, m4's open and closed loops,
+                           flowSim (numpy) and flowsim_fast, make_backlog
+    repro_torch.sim        SimRequest / SimResult, the backend registry
+                           (flowsim, flowsim_fast, m4), run_closed_loop
     repro_torch.weights    the bridge from a JAX parameter tree
 
-Entry point:
+Entry points:
 
-    from repro_torch.sim import SimRequest, get_backend
+    from repro_torch.sim import SimRequest, get_backend, run_closed_loop
     res = get_backend("m4", params=params, cfg=cfg).run(req)   # on the card
+    res = get_backend("flowsim_fast").run(req)                 # on the card
 
-Precision: everything runs in float32. TF32 is switched off for matrix
+Precision: everything runs in float32, except flowsim_fast's two link
+sums, taken exactly in float64 and rounded once (see
+`repro_torch.core.flowsim_fast`). TF32 is switched off for matrix
 products and for cuDNN when the package is imported, so the plain
 matmuls around the kernels (projections, MLP heads) round as the JAX
 reference does.

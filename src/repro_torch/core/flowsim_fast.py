@@ -1,0 +1,183 @@
+"""flowSim on the card: the max-min event loop of `repro.core.flowsim_fast`
+as a Python loop of 2N flow-level events over dense incidence arenas.
+
+Each event recomputes the max-min rates of the active flows by
+progressive water-filling (`_waterfill_masked`): exactly `MAX_ROUNDS` =
+32 rounds, each two link sums over the incidence, the per-flow masked
+row-min (`repro_torch.kernels.dispatch.masked_rowmin`: the hand-written
+CUDA kernel for a CUDA tensor, the plain version for a CPU one) and a
+freeze step. Once every flow is frozen a round changes nothing, so the
+fixed count equals the reference's `while_loop` and needs no host sync;
+where 32 rounds do not freeze every flow, the flows left get rate 0 for
+that event, as in the reference. Then the next arrival races the earliest
+departure and the remaining sizes drain linearly.
+
+Arenas carry a leading batch axis B, one scenario per row
+(`run_flowsim_fast` is B = 1); `run_flowsim_fast_batch` pads B scenarios
+to one shape. Everything is float32, as the reference runs with x64 off.
+The two link sums (unfrozen flows per link, rate in use per link) are
+taken exactly in float64 and rounded once to float32: the reference
+leaves their summation order to XLA, and an exact sum makes the card and
+the CPU agree bitwise, so a tie in the freeze test or the departure race
+cannot break one way on the card and the other on the CPU.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..kernels import dispatch
+from .flowsim import FlowSimResult
+
+BIG = 1e30
+MAX_ROUNDS = 32
+# the reference's tie test `f_share <= theta * (1 + 1e-9)` runs in
+# float32, where 1 + 1e-9 rounds to 1: it is an equality test, kept as is
+TIE = 1 + 1e-9
+
+
+def _waterfill_round(a, a64, cap, rates, frozen):
+    """One progressive-filling round. a: (B, N, L) float32 0/1 incidence
+    and a64 its float64 copy; cap: (B, L); rates: (B, N); frozen: (B, N)
+    bool. Returns (rates, frozen)."""
+    unfrozen = ~frozen
+    # (B, 2, N) @ (B, N, L): flows per link, rate in use per link (exact)
+    lhs = torch.stack([unfrozen, frozen], 1).to(torch.float64)
+    lhs[:, 1] *= rates
+    n_l, used = torch.bmm(lhs, a64).to(torch.float32).unbind(1)
+    avail = torch.clamp_min(cap - used, 0.0)
+    share = torch.where(n_l > 0, avail / n_l.clamp_min(1.0), BIG)
+    f_share = dispatch.masked_rowmin(a, share)
+    theta = torch.where(unfrozen, f_share, BIG).amin(-1, keepdim=True)
+    newly = unfrozen & (f_share <= theta * TIE)
+    return torch.where(newly, f_share, rates), frozen | newly
+
+
+def _waterfill_masked(a, a64, cap, active, *, max_rounds=MAX_ROUNDS,
+                      stats=None):
+    """Max-min rates of the active flows (B, N); zero for inactive ones.
+    A dict `stats` receives, per scenario, the rounds the reference's
+    `while_loop` runs ("rounds") and whether 32 rounds left some flow
+    unfrozen ("capped")."""
+    rates = torch.zeros(active.shape, dtype=torch.float32,
+                        device=active.device)
+    frozen = ~active
+    rounds = 0
+    for _ in range(max_rounds):
+        if stats is not None:
+            rounds = rounds + ~frozen.all(-1)
+        rates, frozen = _waterfill_round(a, a64, cap, rates, frozen)
+    if stats is not None:
+        stats["rounds"], stats["capped"] = rounds, ~frozen.all(-1)
+    return torch.where(active, rates, 0.0)
+
+
+@torch.inference_mode()
+def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
+                     num_events=None, record=False):
+    """2N events (or `num_events`) over (B, N, L) arenas. Returns the
+    absolute completion times (B, N); with `record`, also a dict of
+    per-event (B, events) records: "fid", "is_arrival", and the
+    water-filling's "rounds" and "capped" (see `_waterfill_masked`)."""
+    B, N, _ = a.shape
+    dev = a.device
+    a64 = a.to(torch.float64)
+    b1 = torch.arange(B, device=dev)
+    remaining = torch.zeros(B, N, device=dev)
+    active = torch.zeros(B, N, dtype=torch.bool, device=dev)
+    fct = torch.zeros(B, N, device=dev)
+    ptr = torch.zeros(B, dtype=torch.long, device=dev)
+    t = torch.zeros(B, device=dev)
+    length = 2 * N if num_events is None else num_events
+    stats = {} if record else None
+    log = {k: [] for k in ("fid", "is_arrival", "rounds", "capped")}
+    for _ in range(length):
+        rates = _waterfill_masked(a, a64, cap, active, stats=stats)
+        tta = torch.where(active & (rates > 0),
+                          remaining / rates.clamp_min(1e-9), BIG)
+        dep_i = tta.argmin(1)                  # first index on ties
+        next_dep = t + tta.gather(1, dep_i[:, None])[:, 0]
+        pc = ptr.clamp(max=N - 1)[:, None]
+        next_arr = torch.where(ptr < N, arr_times.gather(1, pc)[:, 0], BIG)
+        is_arr = next_arr <= next_dep          # arrivals win ties
+        t_ev = torch.where(is_arr, next_arr, next_dep)
+        dt = torch.clamp_min(t_ev - t, 0.0)
+        remaining = torch.where(active, remaining - rates * dt[:, None],
+                                remaining)
+        fid = torch.where(is_arr, arr_order.gather(1, pc)[:, 0], dep_i)
+        # arrival: activate; departure: deactivate and record the time
+        active[b1, fid] = is_arr
+        fct[b1, fid] = torch.where(is_arr, fct[b1, fid], t_ev)
+        remaining[b1, fid] = torch.where(is_arr, sizes_bits[b1, fid], 0.0)
+        ptr = ptr + is_arr.long()
+        t = t_ev
+        if record:
+            for k, v in (("fid", fid), ("is_arrival", is_arr), *stats.items()):
+                log[k].append(v)
+    if not record:
+        return fct
+    return fct, {k: torch.stack(v, 1) for k, v in log.items()}
+
+
+def _pack(topo, flows, n_total=None, l_total=None):
+    """Dense incidence + arrival schedule, optionally padded to a shared
+    shape. Padded flows have empty paths, 8 bits and arrive at t=BIG
+    (strictly after every real event); padded links carry no flow and
+    have capacity 1."""
+    n = len(flows)
+    N = n if n_total is None else n_total
+    L = topo.num_links if l_total is None else l_total
+    a = np.zeros((N, L), np.float32)
+    for f in flows:
+        a[f.fid, f.path] = 1.0
+    sizes = np.full(N, 8.0, np.float64)
+    sizes[:n] = [float(f.size) * 8.0 for f in flows]
+    cap = np.ones(L, np.float64)
+    cap[:topo.num_links] = topo.capacity
+    t_arr = np.full(N, BIG, np.float32)
+    t_arr[:n] = [f.t_arrival for f in flows]
+    order = np.argsort(t_arr, kind="stable").astype(np.int32)
+    return a, cap, sizes, t_arr[order], order
+
+
+def _to_device(packed, device):
+    """Stacked numpy arenas -> (B, ...) tensors: float64 sizes and
+    capacities round to float32, as the reference's do with x64 off."""
+    a, cap, sizes, times, order = (np.stack(col) for col in zip(*packed))
+    f32 = lambda x: torch.from_numpy(x).to(device, torch.float32)  # noqa: E731
+    return (f32(a), f32(cap), f32(sizes), f32(times),
+            torch.from_numpy(order).to(device, torch.long))
+
+
+def _result(topo, flows, fct_abs, wall):
+    arr = np.array([f.t_arrival for f in flows])
+    fcts = fct_abs[:len(flows)] - arr
+    ideal = np.array([topo.ideal_fct(f.size, f.path) for f in flows])
+    empty = np.zeros(0, np.float64)
+    return FlowSimResult(fcts=fcts, slowdowns=fcts / ideal,
+                         event_times=empty, event_types=empty,
+                         event_fids=empty, wallclock=wall)
+
+
+def run_flowsim_fast(topo, flows, device="cuda"):
+    """Drop-in fast path for `run_flowsim` (fcts + slowdowns only)."""
+    return run_flowsim_fast_batch([(topo, flows)], device)[0]
+
+
+def run_flowsim_fast_batch(scenarios, device="cuda"):
+    """B (topo, flows) scenarios padded to the largest flow/link count and
+    run as one batch of arenas. Returns a list of FlowSimResult."""
+    scenarios = list(scenarios)
+    if not scenarios:
+        return []
+    n_max = max(len(flows) for _, flows in scenarios)
+    l_max = max(topo.num_links for topo, _ in scenarios)
+    args = _to_device([_pack(topo, flows, n_total=n_max, l_total=l_max)
+                       for topo, flows in scenarios], device)
+    t0 = time.perf_counter()
+    fct_abs = _event_scan_core(*args).cpu().numpy()
+    wall = time.perf_counter() - t0
+    return [_result(topo, flows, fct_abs[b], wall / len(scenarios))
+            for b, (topo, flows) in enumerate(scenarios)]

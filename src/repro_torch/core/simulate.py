@@ -417,3 +417,67 @@ def simulate_open_loop_batch(params, cfg: M4Config, scenarios) -> list:
     return [M4Result(fcts=fct[b, :n], slowdowns=fct[b, :n] / ideals[b][:n],
                      wallclock=wall / len(scenarios))
             for b, n in enumerate(counts)]
+
+
+# ------------------------------------------------------------ closed loop
+class M4Simulator:
+    """Single-event interface for closed-loop traffic generators (§5.4),
+    the `repro_torch.sim` closed-loop session of the `m4` backend.
+
+    The flow arena is pre-sized to the full backlog; `run_closed_loop`
+    releases arrivals dynamically. Arenas are a batch of one, updated in
+    place by the open loop's `make_event_step`. `next_departure` is a
+    masked argmin on the device that brings two scalars to the host: one
+    sync per call, none per event step."""
+
+    def __init__(self, params, cfg: M4Config, topo, net_config, flows):
+        self.params, self.cfg = params, cfg
+        self.device = _device(params)
+        static, self.num_links, self.ideal = make_static(
+            topo, flows, net_config, cfg)
+        self.static = stack_static([static], self.device)
+        self.N = len(flows)
+        self.state = init_sim_state(params, cfg, self.static, self.N,
+                                    self.num_links)
+        self._step = make_event_step(cfg, self.static, self.num_links)
+        self.fcts = np.full(self.N, np.nan, np.float64)
+        # host mirror of state["t_arr"]: arrival times enter the arena only
+        # from host floats (inject_arrival), so FCTs need no device pull
+        self.t_arr_host = static["t_arrival"][:self.N].astype(np.float64)
+
+    @torch.inference_mode()
+    def next_departure(self):
+        N, s = self.N, self.state
+        live = s["arrived"][0, :N] & ~s["done"][0, :N]
+        dep_t = torch.where(live, s["t_dep"][0, :N], BIG)
+        i = dep_t.argmin()                     # first index on ties
+        t, i = torch.stack([dep_t[i].double(), i.double()]).tolist()
+        return (None, None) if t >= BIG / 2 else (t, int(i))
+
+    def _event(self, t: float, fid: int, is_arrival: bool):
+        dev = self.device
+        self._step(self.params, self.state,
+                   torch.full((1,), t, dtype=torch.float32, device=dev),
+                   torch.full((1,), fid, dtype=torch.long, device=dev),
+                   torch.full((1,), is_arrival, dtype=torch.bool,
+                              device=dev))
+
+    @torch.inference_mode()
+    def inject_arrival(self, fid: int, t: float):
+        # float32 cast keeps the mirror bitwise-equal to the device value
+        self.t_arr_host[fid] = np.float32(t)
+        self.state["t_arr"][0, fid] = t
+        self._event(t, fid, True)
+        self.state["arrived"][0, fid] = True
+
+    @torch.inference_mode()
+    def commit_departure(self, fid: int, t: float):
+        self._event(t, fid, False)
+        self.state["done"][0, fid] = True
+        self.state["t_dep"][0, fid] = BIG
+        self.fcts[fid] = t - self.t_arr_host[fid]
+
+    def completion_times(self) -> np.ndarray:
+        """Absolute completion time per flow (NaN while unfinished)."""
+        return np.where(np.isfinite(self.fcts),
+                        self.t_arr_host + self.fcts, np.nan)

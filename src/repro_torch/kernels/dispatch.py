@@ -1,4 +1,5 @@
-"""The GRU and GNN hot path of one m4 event, routed by device.
+"""The kernel-backed primitives of m4's event and flowSim's round, routed
+by device.
 
 A CPU tensor goes to the plain PyTorch version; a CUDA tensor goes to the
 hand-written kernel, which launches or raises. There is no environment
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 from .bipartite import ref as bipartite_ref
 from .fused_gru import ref as gru_ref
+from .waterfill import ref as waterfill_ref
 
 
 def _on_cpu(t) -> bool:
@@ -33,3 +35,12 @@ def gnn_rounds(layers, f, l, edge_f, edge_l, edge_mask, num_links):
         return bipartite_ref.bipartite_rounds_matmul(layers, f, l, m)
     from .bipartite.ops import bipartite_rounds
     return bipartite_rounds(layers, f, l, edge_f, edge_l, edge_mask)
+
+
+def masked_rowmin(a, share):
+    """Per-flow bottleneck share: min over the flow's links of `share`;
+    a (..., F, L) 0/1 incidence, share (..., L)."""
+    if _on_cpu(a):
+        return waterfill_ref.masked_rowmin_ref(a, share)
+    from .waterfill.ops import masked_rowmin as rowmin_kernel
+    return rowmin_kernel(a, share)

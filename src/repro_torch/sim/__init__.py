@@ -1,13 +1,24 @@
 """repro_torch.sim — run the port's simulators through one API.
 
-    from repro_torch.sim import SimRequest, get_backend
+    from repro_torch.sim import SimRequest, get_backend, run_closed_loop
 
     req = SimRequest.from_scenario(scenario)
     res = get_backend("m4", params=params, cfg=cfg).run(req)
+    res = get_backend("flowsim_fast").run_many(reqs)
+    cl = run_closed_loop(get_backend("flowsim"), topo, config, backlog, 3)
+
+Backends: "flowsim" (numpy max-min reference), "flowsim_fast" (flowSim on
+the card), "m4" (the learned simulator). Closed-loop workloads go through
+`run_closed_loop(backend, ...)`.
 """
 from .api import SimRequest, SimResult
-from .backends import (Backend, M4Backend, get_backend, list_backends,
+from .backends import (Backend, FlowSimBackend, FlowSimFastBackend,
+                       M4Backend, get_backend, list_backends,
                        register_backend)
+from .closedloop import (ClosedLoopResult, ClosedLoopSession, FlowSimSession,
+                         run_closed_loop)
 
-__all__ = ["SimRequest", "SimResult", "Backend", "M4Backend", "get_backend",
-           "list_backends", "register_backend"]
+__all__ = ["SimRequest", "SimResult", "Backend", "FlowSimBackend",
+           "FlowSimFastBackend", "M4Backend", "get_backend", "list_backends",
+           "register_backend", "ClosedLoopResult", "ClosedLoopSession",
+           "FlowSimSession", "run_closed_loop"]

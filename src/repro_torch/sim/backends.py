@@ -1,17 +1,21 @@
 """The port's backend protocol and string-keyed registry.
 
 A registry of its own, beside `repro.sim`'s: the port plugs into nothing
-of the JAX package. Only the learned simulator is here so far:
+of the JAX package. Three simulators are registered:
 
-    from repro_torch.sim import get_backend
+    from repro_torch.sim import get_backend, run_closed_loop
 
+    get_backend("flowsim").run(req)                  # numpy, the CPU baseline
+    get_backend("flowsim_fast").run_many(reqs)       # flowSim on the card
     backend = get_backend("m4", params=params, cfg=cfg)   # device="cuda"
     backend.run(req)          # one scenario
     backend.run_many(reqs)    # one padded batch of arenas
+    run_closed_loop(backend, topo, config, backlog, inflight)
 
-`device` defaults to "cuda" and the backend raises when no card is
-present; it never carries on silently on the CPU. Pass device="cpu" to
-run the plain PyTorch versions of the kernels.
+`flowsim_fast` and `m4` take `device`, which defaults to "cuda": they
+raise when no card is present and never carry on silently on the CPU.
+Pass device="cpu" to run the plain PyTorch versions of the kernels.
+`flowsim` is the numpy event loop on the host in both packages.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ def register_backend(name: str, factory: Callable[..., "Backend"] = None):
 
 def get_backend(name: str, **kwargs) -> "Backend":
     """Instantiate the backend registered under `name`; kwargs go to its
-    factory (m4: `params`, `cfg`, `device`)."""
+    factory (m4: `params`, `cfg`, `device`; flowsim_fast: `device`)."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown backend {name!r}; "
                        f"available: {sorted(_REGISTRY)}")
@@ -62,6 +66,16 @@ class Backend:
         """Identity string for result caching."""
         return self.name
 
+    def closed_loop(self, topo, config, flows):
+        """Open a `ClosedLoopSession` (dynamic arrivals)."""
+        raise NotImplementedError(
+            f"backend {self.name!r} has no closed-loop session")
+
+
+def _no_probes(request: SimRequest):
+    if request.probes is not None:
+        raise NotImplementedError("probes are not ported yet")
+
 
 def resolve_device(device) -> torch.device:
     """The device a backend runs on; a CUDA device must exist."""
@@ -73,6 +87,78 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def _result(name, r) -> SimResult:
+    return SimResult(fcts=r.fcts, slowdowns=r.slowdowns,
+                     wall_time=r.wallclock, backend=name, raw=r)
+
+
+@register_backend("flowsim")
+class FlowSimBackend(Backend):
+    """Classical max-min flowSim, the numpy event loop (paper §2.1
+    baseline); it runs on the host by nature and takes no device."""
+
+    name = "flowsim"
+
+    def run(self, request: SimRequest) -> SimResult:
+        from ..core.flowsim import run_flowsim
+        _no_probes(request)
+        r = run_flowsim(request.topo, list(request.flows),
+                        until=request.until,
+                        record_events=request.record_events)
+        kw = {}
+        if request.record_events:
+            kw = dict(event_times=r.event_times, event_types=r.event_types,
+                      event_fids=r.event_fids)
+        return SimResult(fcts=r.fcts, slowdowns=r.slowdowns,
+                         wall_time=r.wallclock, backend=self.name, raw=r, **kw)
+
+    def closed_loop(self, topo, config, flows):
+        from .closedloop import FlowSimSession
+        return FlowSimSession(topo, flows)
+
+
+@register_backend("flowsim_fast")
+class FlowSimFastBackend(Backend):
+    """flowSim as an event loop over device arenas, with the water-filling
+    row-min kernel on the card; `run_many` pads scenarios to one batch."""
+
+    name = "flowsim_fast"
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+
+    def fingerprint(self) -> str:
+        """"flowsim_fast_torch-k<cuda|torch>": distinct from the JAX
+        package's "flowsim_fast-k<mode>", and from one device to the other
+        (kernel vs plain row-min)."""
+        kind = "cuda" if self.device.type == "cuda" else "torch"
+        return f"flowsim_fast_torch-k{kind}"
+
+    def run(self, request: SimRequest) -> SimResult:
+        return self.run_many([request])[0]
+
+    def run_many(self, requests: Sequence[SimRequest]) -> List[SimResult]:
+        from ..core.flowsim_fast import run_flowsim_fast_batch
+        for r in requests:
+            self._check(r)
+        results = run_flowsim_fast_batch(
+            [(r.topo, list(r.flows)) for r in requests], self.device)
+        return [_result(self.name, r) for r in results]
+
+    def closed_loop(self, topo, config, flows):
+        # closed-loop stepping is event-at-a-time; as in the JAX package,
+        # the numpy max-min session runs it (identical fluid semantics)
+        from .closedloop import FlowSimSession
+        return FlowSimSession(topo, flows)
+
+    @staticmethod
+    def _check(request: SimRequest):
+        if request.until is not None:
+            raise NotImplementedError(
+                "flowsim_fast runs the full trace; `until` unsupported")
+        _no_probes(request)
 
 
 @register_backend("m4")
@@ -108,8 +194,7 @@ class M4Backend(Backend):
         self._check(request)
         r = simulate_open_loop(self.params, self.cfg, request.topo,
                                request.config, list(request.flows))
-        return SimResult(fcts=r.fcts, slowdowns=r.slowdowns,
-                         wall_time=r.wallclock, backend=self.name, raw=r)
+        return _result(self.name, r)
 
     def run_many(self, requests: Sequence[SimRequest]) -> List[SimResult]:
         from ..core.simulate import simulate_open_loop_batch
@@ -118,14 +203,15 @@ class M4Backend(Backend):
         results = simulate_open_loop_batch(
             self.params, self.cfg,
             [(r.topo, r.config, list(r.flows)) for r in requests])
-        return [SimResult(fcts=r.fcts, slowdowns=r.slowdowns,
-                          wall_time=r.wallclock, backend=self.name, raw=r)
-                for r in results]
+        return [_result(self.name, r) for r in results]
+
+    def closed_loop(self, topo, config, flows):
+        from ..core.simulate import M4Simulator
+        return M4Simulator(self.params, self.cfg, topo, config, list(flows))
 
     @staticmethod
     def _check(request: SimRequest):
         if request.until is not None:
             raise NotImplementedError(
                 "m4 predicts the full trace; `until` unsupported")
-        if request.probes is not None:
-            raise NotImplementedError("probes are not ported yet")
+        _no_probes(request)

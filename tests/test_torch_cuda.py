@@ -5,8 +5,9 @@ GPU and skips without one; on a machine with a card run
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: 1e-5 for the GRU pair, 1e-4 for the GNN round (those of
-tests/test_kernels.py), 1e-4 relative for FCTs from the card against the
-CPU (kernels and CPU BLAS sum in other orders)."""
+tests/test_kernels.py), none for the water-filling row-min (a min is
+exact: bitwise), 1e-4 relative for FCTs from the card against the CPU
+(kernels and CPU BLAS sum in other orders)."""
 import numpy as np
 import pytest
 
@@ -19,12 +20,18 @@ from repro_torch.kernels.bipartite import ops as bip_ops  # noqa: E402
 from repro_torch.kernels.bipartite import ref as bip_ref  # noqa: E402
 from repro_torch.kernels.fused_gru import ops as gru_ops  # noqa: E402
 from repro_torch.kernels.fused_gru import ref as gru_ref  # noqa: E402
+from repro_torch.kernels.waterfill import ops as wf_ops  # noqa: E402
+from repro_torch.kernels.waterfill import ref as wf_ref  # noqa: E402
+from repro_torch.net import FatTree, NetConfig  # noqa: E402
 from repro_torch.sim import SimRequest, get_backend  # noqa: E402
+from repro_torch.sim import run_closed_loop  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 GRU_TOL = 1e-5
 GNN_TOL = 1e-4
+GATE = dict(hidden=16, gnn_dim=16, mlp_hidden=16, gnn_layers=2,
+            snap_flows=16, snap_links=32)
 
 
 @pytest.fixture
@@ -90,8 +97,7 @@ def test_bipartite_kernel_matches_plain(card, B, SF, SL, G, P):
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernels(card):
-    cfg = M4Config(hidden=16, gnn_dim=16, mlp_hidden=16, gnn_layers=2,
-                   snap_flows=16, snap_links=32)
+    cfg = M4Config(**GATE)
     p = init_m4(0, cfg, device=card)
     x = torch.zeros(16, 13, device=card)
     h = torch.zeros(16, 16, device=card)
@@ -106,11 +112,30 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(card):
                         torch.zeros(32, 16, device=card), e, e,
                         torch.ones(128, device=card), 32)
     assert bip_ops.bipartite_round.launches == n + 2
+    n = wf_ops.masked_rowmin.launches
+    dispatch.masked_rowmin(torch.ones(1, 8, 4, device=card),
+                           torch.ones(1, 4, device=card))
+    assert wf_ops.masked_rowmin.launches == n + 1
 
+
+@pytest.mark.parametrize("B,F,L", [
+    (1, 2000, 80), (1, 2000, 96), (1, 2000, 128), (4, 2000, 96),  # main path
+    (1, 129, 37), (3, 1, 1), (2, 33, 300), (1, 64, 13000)])        # ragged
+def test_rowmin_kernel_equals_plain_bitwise(card, B, F, L):
+    g = torch.Generator().manual_seed(F + L)
+    a = (torch.rand(B, F, L, generator=g) < 3.0 / L).float()
+    a[:, ::9] = 0.0                                   # empty rows: INF
+    share = torch.rand(B, L, generator=g) * 1e10
+    share[:, ::4] = 1e30                              # links with no flow
+    want = wf_ref.masked_rowmin_ref(a, share)
+    n = wf_ops.masked_rowmin.launches
+    got = wf_ops.masked_rowmin(a.to(card), share.to(card))
+    torch.cuda.synchronize()
+    assert wf_ops.masked_rowmin.launches == n + 1
+    assert torch.equal(got.cpu(), want)
 
 def test_run_on_the_card_matches_the_cpu(card):
-    cfg = M4Config(hidden=16, gnn_dim=16, mlp_hidden=16, gnn_layers=2,
-                   snap_flows=16, snap_links=32)
+    cfg = M4Config(**GATE)
     params = init_m4(0, cfg)
     reqs = [SimRequest.from_scenario(sample_scenario(s, num_flows=60))
             for s in range(3)]
@@ -120,3 +145,30 @@ def test_run_on_the_card_matches_the_cpu(card):
     for a, b in zip(gpu, cpu):
         assert np.isfinite(a.fcts).all() and (a.fcts > 0).all()
         np.testing.assert_allclose(a.fcts, b.fcts, rtol=1e-4)
+
+
+def test_flowsim_fast_on_the_card_matches_the_cpu(card):
+    reqs = [SimRequest.from_scenario(sample_scenario(s, num_flows=n))
+            for s, n in ((1, 300), (2, 200), (3, 250))]
+    n = wf_ops.masked_rowmin.launches
+    gpu = get_backend("flowsim_fast").run_many(reqs)
+    assert wf_ops.masked_rowmin.launches == n + 32 * 2 * 300
+    cpu = get_backend("flowsim_fast", device="cpu").run_many(reqs)
+    for a, b in zip(gpu, cpu):
+        assert np.isfinite(a.fcts).all() and (a.fcts > 0).all()
+        np.testing.assert_allclose(a.fcts, b.fcts, rtol=1e-4)
+
+
+def test_m4_closed_loop_on_the_card_matches_the_cpu(card):
+    from repro_torch.core.closedloop import make_backlog
+    cfg = M4Config(**GATE)
+    params = init_m4(0, cfg)
+    topo = FatTree(8, 4, 2)
+    backlog = make_backlog(topo, client_racks=2, flows_per_rack=15,
+                           size_dist="WebServer", seed=1)
+    res = [run_closed_loop(get_backend("m4", params=params, cfg=cfg,
+                                       device=d), topo, NetConfig(),
+                           backlog, 3) for d in ("cuda", "cpu")]
+    assert np.isfinite(res[0].completion_times).all()
+    np.testing.assert_allclose(res[0].completion_times,
+                               res[1].completion_times, rtol=1e-4)

@@ -12,10 +12,14 @@ pytest.importorskip("torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
 
-MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.core.simulate",
-           "repro_torch.core.model", "repro_torch.kernels.dispatch",
+MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.sim.closedloop",
+           "repro_torch.core.simulate", "repro_torch.core.model",
+           "repro_torch.core.flowsim", "repro_torch.core.flowsim_fast",
+           "repro_torch.core.closedloop", "repro_torch.kernels.dispatch",
            "repro_torch.kernels.build", "repro_torch.kernels.fused_gru.ops",
-           "repro_torch.kernels.bipartite.ops", "repro_torch.weights",
+           "repro_torch.kernels.bipartite.ops",
+           "repro_torch.kernels.waterfill.ops",
+           "repro_torch.kernels.waterfill.ref", "repro_torch.weights",
            "repro_torch.data.traffic", "repro_torch.net"]
 
 
@@ -32,7 +36,7 @@ def test_import_pulls_in_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True).stdout.split()
-    assert "repro_torch.core.simulate" in out
+    assert set(MODULES) <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
