@@ -8,9 +8,13 @@ Phases, each printing one JSON line:
 1. card        — name and power limit (nvidia-smi);
 2. build       — nvcc builds the kernels from src/repro_torch/kernels/csrc;
 3. kernel      — each kernel against its plain PyTorch version on the card
-                 at the main paths' shapes (both GRU stages; the GNN round
-                 at B = 1 and B = 4; the water-filling row-min at 2000
-                 flows and 80/96/128 links, B = 1 and 4, and a ragged
+                 at the main paths' shapes (both GRU stages; the GNN's
+                 gnn_layers rounds of one event in one launch at B = 1 and
+                 B = 4 on random edges, one round alone, and B = 1 on the
+                 real snapshot with the largest link fan-in over the first
+                 300 events of m4's 2000-flow `run`, each also bitwise
+                 against a second launch; the water-filling row-min at
+                 2000 flows and 80/96/128 links, B = 1 and 4, and a ragged
                  shape, bitwise): errors, device times (CUDA-graph replay,
                  so host overhead is excluded), bound, library call;
 4. full        — m4 at the paper's full width (M4Config defaults, seeded
@@ -19,11 +23,12 @@ Phases, each printing one JSON line:
                  flowsim_fast the same way (2000 flows, `run` of the seed
                  where the 32-round water-filling cap binds). Every flow
                  done, FCTs finite and positive, and the launch counters
-                 show each path's kernels (m4: 2 GRU-pair and gnn_layers
-                 round launches per event; flowsim_fast: 32 row-min
-                 launches per event);
+                 show each path's kernels (m4: 2 GRU-pair launches and 1
+                 GNN launch per event; flowsim_fast: 32 row-min launches
+                 per event);
 5. profile     — a short run of each path under torch.profiler: device
-                 busy share and CUDA kernels launched per event;
+                 busy share, CUDA kernels launched per event, and the
+                 device time per event of each of the port's kernels;
 6. cpu         — the card against the CPU: m4 with the same weights on a
                  200-flow scenario, flowsim_fast on the 2000-flow `run`
                  scenario, FCTs at rtol 1e-4 (for flowsim_fast also the
@@ -32,8 +37,8 @@ Phases, each printing one JSON line:
 7. closed_loop — the §5.4 closed loop (per-rack inflight 3) on a 2-client-
                  rack backlog of 500 flows through run_closed_loop, for m4
                  at full width and for flowsim_fast: every flow completes,
-                 and m4's launch counters read 2 GRU-pair and gnn_layers
-                 round launches per event.
+                 and m4's launch counters read 2 GRU-pair launches and 1
+                 GNN launch per event.
 
 Then the `kernels` line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the script
@@ -55,6 +60,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # HBM3 bandwidth; the bound of a launch is the larger of the two times
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PORT_KERNELS = ("gru_pair_kernel", "bipartite_rounds_kernel",
+                "masked_rowmin_kernel")
 GRU_TOL = 1e-5
 GNN_TOL = 1e-4
 FCT_RTOL = 1e-4
@@ -173,54 +180,116 @@ def phase_kernels(torch, params, cfg, dev):
         library_ms=gru_tot["library_ms"],
         library="torch.gru_cell, flow + link cell, both stages")
 
-    # ---- bipartite round, B = 1 and B = 4
-    layer = params["gnn"][0]
+    # ---- the GNN: all gnn_layers rounds of one event in one launch, at
+    # B = 1 and B = 4 on uniform random edges, one round alone, and B = 1
+    # on the real snapshot with the largest link fan-in
+    layers = params["gnn"]
+    R = len(layers)
     E = SF * P
     edge_f = torch.arange(SF, device=dev).repeat_interleave(P)
+    real = real_snapshot(torch, params, cfg, dev)
+    cases = []
     for B in (1, 4):
-        f = torch.relu(randn(B, SF, G))
-        l = torch.relu(randn(B, SL, G))
         edge_l = torch.randint(0, SL, (B, E), generator=g, device=dev)
         edge_mask = (torch.rand(B, E, generator=g, device=dev) < 0.7).float()
-        args = (f, l, edge_f, edge_l, edge_mask, layer["wf"]["w"],
-                layer["wl"]["w"], layer["wf"]["b"], layer["wl"]["b"])
-        got = bip_ops.bipartite_round(*args)
-        want = bip_ref.bipartite_round_ref(*args)
-        m = bip_ref.incidence_from_edges(edge_f, edge_l, edge_mask, SF, SL)
-        want_mm = bip_ref.bipartite_rounds_matmul([layer], f, l, m)
+        cases.append((f"B{B}", B, edge_l, edge_mask, layers, {}))
+    cases.append(("B1_one_round", 1, cases[0][2], cases[0][3], layers[:1],
+                  {}))
+    cases.append(("B1_real_edges", 1, real["edge_l"], real["edge_mask"],
+                  layers, {k: real[k] for k in ("event", "events_scanned")}))
+    for tag, B, edge_l, edge_mask, lys, extra in cases:
+        f = torch.relu(randn(B, SF, G))
+        l = torch.relu(randn(B, SL, G))
+        ins = (f, l, edge_f, edge_l, edge_mask)
+
+        def plain(lys=lys, ins=ins):
+            f, l, *edges = ins
+            for ly in lys:
+                f, l = bip_ref.bipartite_round_ref(
+                    f, l, *edges, ly["wf"]["w"], ly["wl"]["w"],
+                    ly["wf"]["b"], ly["wl"]["b"])
+            return f, l
+
+        def plain_matmul(lys=lys, ins=ins):
+            f, l, *edges = ins
+            m = bip_ref.incidence_from_edges(*edges, SF, SL)
+            return bip_ref.bipartite_rounds_matmul(lys, f, l, m)
+
+        def kernel(lys=lys, ins=ins):
+            return bip_ops.bipartite_rounds(lys, *ins)
+
+        got, again, want = kernel(), kernel(), plain()
         errs = []
-        for name, a, b, c in zip(("flow", "link"), got, want, want_mm):
-            check_close(torch, f"bipartite B={B} {name}", a, b, GNN_TOL)
-            check_close(torch, f"bipartite matmul form B={B} {name}", c, b,
+        for name, a, a2, b, c in zip(("flow", "link"), got, again, want,
+                                     plain_matmul()):
+            check_close(torch, f"bipartite {tag} {name}", a, b, GNN_TOL)
+            check_close(torch, f"bipartite matmul form {tag} {name}", c, b,
                         GNN_TOL)
+            if not torch.equal(a, a2):
+                raise AssertionError(f"bipartite {tag} {name}: two launches "
+                                     "differ (the sum order must be fixed)")
             errs.append(max_err(torch, a, b))
-        # aggregation: the kernel sums the live (mask 1) edges only
-        live = int(edge_mask.sum().item())
-        flops = B * 2 * (SF + SL) * 2 * G * G + 2 * 2 * live * G
-        nbytes = (4 * B * 2 * (SF + SL) * G + 4 * 2 * (2 * G * G + G)
-                  + B * E * (8 + 8 + 4))
+        # per round: the products, and the aggregation of the live edges
+        live = int((edge_mask != 0).sum().item())
+        flops = len(lys) * (B * 2 * (SF + SL) * 2 * G * G + 2 * 2 * live * G)
+        nbytes = len(lys) * (4 * B * 2 * (SF + SL) * G
+                             + 4 * 2 * (2 * G * G + G) + B * E * (8 + 8 + 4))
         b_ms, b_by = bound_ms(flops, nbytes)
+        fanin = torch.zeros(B, SL, device=dev).scatter_add_(
+            1, edge_l, (edge_mask != 0).float())
         row = dict(
             shapes={"f": [B, SF, G], "l": [B, SL, G], "E": E},
+            rounds=len(lys), live_edges=live,
+            max_link_fanin=int(fanin.max().item()), **extra,
             max_abs_err=max(e[0] for e in errs),
-            max_rel_err=max(e[1] for e in errs),
-            ms=device_ms(torch, lambda: bip_ops.bipartite_round(*args)),
-            plain_ms=device_ms(torch, lambda: bip_ref.bipartite_round_ref(
-                *args)),
-            plain_matmul_ms=device_ms(
-                torch, lambda: bip_ref.bipartite_rounds_matmul(
-                    [layer], f, l, bip_ref.incidence_from_edges(
-                        edge_f, edge_l, edge_mask, SF, SL))),
+            max_rel_err=max(e[1] for e in errs), bitwise_repeat=True,
+            ms=device_ms(torch, kernel), plain_ms=device_ms(torch, plain),
+            plain_matmul_ms=device_ms(torch, plain_matmul),
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        emit("kernel", name=f"bipartite_round/B{B}", **row)
-        if B == 1:
+        emit("kernel", name=f"bipartite_rounds/{tag}", **row)
+        if tag == "B1":
             entries["bipartite_round"] = dict(
-                per="launch: one round, B=1",
+                per=f"event: {R} rounds in one launch, B=1",
                 max_abs_err=row["max_abs_err"], ms=row["ms"],
                 plain_ms=row["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                 library_ms=None,
-                library="none: no single PyTorch call computes the round")
+                library="none: no single PyTorch call computes a round")
     return entries
+
+
+def real_snapshot(torch, params, cfg, dev, events=300):
+    """The edges of the snapshot with the largest live fan-in of any link
+    row over the first `events` events of m4's `run` of the 2000-flow
+    sample_scenario(0) at full width, as make_event_step builds them."""
+    import numpy as np
+    from repro_torch.core import simulate as sim
+    from repro_torch.data.traffic import sample_scenario
+    from repro_torch.sim import SimRequest
+
+    req = SimRequest.from_scenario(sample_scenario(0))
+    static, L, _ = sim.make_static(req.topo, list(req.flows), req.config,
+                                   cfg)
+    order, times = sim._arrival_order(static)
+    st = sim.stack_static([static], dev)
+    order = torch.from_numpy(order[None]).long().to(dev)
+    times = torch.from_numpy(times[None]).to(dev)
+    kept = []
+    with torch.inference_mode():
+        step = sim.make_event_step(cfg, st, L)
+        state = sim.init_sim_state(params, cfg, st, len(req.flows), L)
+        ptr = torch.zeros(1, dtype=torch.long, device=dev)
+        for _ in range(events):
+            state, ptr, *_, snap = sim._open_loop_body(params, step, state,
+                                                       ptr, order, times)
+            live = (snap["edge_mask"] != 0).float()
+            fan = torch.zeros(1, cfg.snap_links, device=dev).scatter_add_(
+                1, snap["edge_l"], live).max()
+            kept.append((fan, snap["edge_l"], snap["edge_mask"]))
+    fans = torch.stack([k[0] for k in kept]).cpu().numpy()
+    i = int(np.argmax(fans))
+    return {"edge_l": kept[i][1].clone(), "edge_mask": kept[i][2].clone(),
+            "max_link_fanin": int(fans[i]), "event": i,
+            "events_scanned": events}
 
 
 def phase_rowmin(torch, dev, run_shape):
@@ -288,8 +357,8 @@ def run_counted(torch, fn):
                  "masked_rowmin": masked_rowmin.launches}, wall
 
 
-def launches(gru=0, rounds=0, rowmin=0):
-    return {"fused_gru_pair": gru, "bipartite_round": rounds,
+def launches(gru=0, gnn=0, rowmin=0):
+    return {"fused_gru_pair": gru, "bipartite_round": gnn,
             "masked_rowmin": rowmin}
 
 
@@ -345,10 +414,17 @@ def phase_profile(torch, name, backend, req, smi):
     busy_us = sum(e.device_time_total for e in kernels)
     events = 2 * req.num_flows
     top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)[:8]
+    ours = {}
+    for e in kernels:
+        for k in PORT_KERNELS:
+            if k in e.name:
+                ours[k] = ours.get(k, 0.0) + e.device_time_total / events
     emit("profile", path=name, flows=req.num_flows, events=events,
          wall_s=wall,
          cuda_kernels_per_event=len(kernels) / events if kernels else None,
          device_busy_share=(busy_us * 1e-6 / wall) if kernels else None,
+         device_us_per_event=busy_us / events,
+         port_kernel_device_us_per_event=ours,
          top_device_us=[(e.key, e.device_time_total) for e in top],
          card=smi)
 
@@ -411,7 +487,7 @@ def phase_closed_loop(torch, np, m4, fs, cfg, smi):
     n = sum(len(rack) for rack in backlog)
     events = 2 * n
     for name, backend, want in (
-            ("m4", m4, launches(2 * events, cfg.gnn_layers * events)),
+            ("m4", m4, launches(2 * events, events)),
             ("flowsim_fast", fs, launches())):
         res, counts, wall = run_counted(torch, lambda: run_closed_loop(
             backend, topo, NetConfig(), backlog, 3))
@@ -478,7 +554,7 @@ def main() -> int:
     m4.run(req_of(7, num_flows=20))
     _, run_launches = phase_full(
         torch, np, "m4", m4, req_of(0), [req_of(s) for s in range(4)],
-        launches(2, cfg.gnn_layers), smi)
+        launches(2, 1), smi)
     fs = get_backend("flowsim_fast")
     fs.run(req_of(7, num_flows=20))
     fs_res, fs_launches = phase_full(

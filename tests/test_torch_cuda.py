@@ -4,7 +4,7 @@ GPU and skips without one; on a machine with a card run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: 1e-5 for the GRU pair, 1e-4 for the GNN round (those of
+Tolerances: 1e-5 for the GRU pair, 1e-4 for the GNN rounds (those of
 tests/test_kernels.py), none for the water-filling row-min (a min is
 exact: bitwise), 1e-4 relative for FCTs from the card against the CPU
 (kernels and CPU BLAS sum in other orders)."""
@@ -48,7 +48,8 @@ def _randn(g, *shape, scale=1.0):
 @pytest.mark.parametrize("Bf,Df,Bl,Dl,H", [
     (64, 13, 128, 11, 400), (64, 309, 128, 309, 400),   # full width
     (256, 309, 512, 309, 400),                           # run_many, B = 4
-    (16, 13, 32, 11, 16), (5, 7, 3, 40, 20), (0, 13, 9, 11, 33)])
+    (16, 13, 32, 11, 16), (5, 7, 3, 40, 20), (0, 13, 9, 11, 33),
+    (64, 13, 128, 11, 401), (70, 45, 1, 300, 130)])        # ragged tiles
 def test_gru_pair_kernel_matches_plain(card, Bf, Df, Bl, Dl, H):
     g = torch.Generator().manual_seed(Bf + Df + H)
     p = [{"wi": _randn(g, d, 3 * H, scale=H ** -0.5),
@@ -62,35 +63,76 @@ def test_gru_pair_kernel_matches_plain(card, Bf, Df, Bl, Dl, H):
     pc = [{k: on(v) for k, v in q.items()} for q in p]
     n = gru_ops.gru_pair.launches
     got = gru_ops.gru_pair(pc[0], pc[1], *map(on, xs))
+    again = gru_ops.gru_pair(pc[0], pc[1], *map(on, xs))
     torch.cuda.synchronize()
-    assert gru_ops.gru_pair.launches == n + 1
-    for a, b in zip(got, want):
+    assert gru_ops.gru_pair.launches == n + 2
+    for a, a2, b in zip(got, again, want):
         torch.testing.assert_close(a.cpu(), b, rtol=GRU_TOL, atol=GRU_TOL)
+        assert torch.equal(a, a2)          # fixed sum order: bitwise
 
 
-@pytest.mark.parametrize("B,SF,SL,G,P", [
-    (1, 64, 128, 300, 8), (4, 64, 128, 300, 8), (1, 16, 32, 16, 8),
-    (2, 8, 16, 20, 4), (3, 32, 64, 600, 6)])
-def test_bipartite_kernel_matches_plain(card, B, SF, SL, G, P):
-    g = torch.Generator().manual_seed(SF * G)
+def _edges(g, kind, B, SF, SL, P):
+    """Edge lists of B snapshots: edge_f (E,), edge_l and edge_mask (B, E).
+    random: m4's layout (edge e belongs to flow e // P), 70% live;
+    hub: flow i's first edge goes to link 5, every other edge is masked,
+    so one link row has a fan-in of SF and the rest none;
+    shuffled: edge_f in no order; mixed: per-scenario live shares 0, 0.3,
+    1 and 0.7 (B = 4)."""
     E = SF * P
-    f, l = _randn(g, B, SF, G), _randn(g, B, SL, G)
     edge_f = torch.arange(SF).repeat_interleave(P)
     edge_l = torch.randint(0, SL, (B, E), generator=g)
-    edge_mask = (torch.rand(B, E, generator=g) < 0.7).float()
+    live = torch.rand(B, E, generator=g)
+    if kind == "mixed":
+        share = torch.tensor([0.0, 0.3, 1.0, 0.7])[:B, None]
+    else:
+        share = torch.full((B, 1), 0.7)
+    edge_mask = (live < share).float()
+    if kind == "hub":
+        first = torch.arange(E) % P == 0
+        edge_l[:, first] = 5
+        edge_mask = first.float().expand(B, E).contiguous()
+    if kind == "shuffled":
+        edge_f = torch.randperm(E, generator=g) % SF
+    # m4 points masked edges at link slot 0
     edge_l[:, ::3] = torch.where(edge_mask[:, ::3] > 0, edge_l[:, ::3], 0)
-    w = [_randn(g, 2 * G, G, scale=(2 * G) ** -0.5) for _ in range(2)]
-    b = [_randn(g, G, scale=0.1) for _ in range(2)]
-    want = bip_ref.bipartite_round_ref(f, l, edge_f, edge_l, edge_mask,
-                                       *w, *b)
+    return edge_f, edge_l, edge_mask
+
+
+@pytest.mark.parametrize("B,SF,SL,G,P,R,kind", [
+    (1, 64, 128, 300, 8, 1, "random"), (4, 64, 128, 300, 8, 1, "random"),
+    (1, 16, 32, 16, 8, 1, "random"), (2, 8, 16, 20, 4, 1, "random"),
+    (3, 32, 64, 600, 6, 1, "random"),
+    # all rounds of an event in one launch, against the plain chain
+    (1, 64, 128, 300, 8, 2, "random"), (1, 64, 128, 300, 8, 3, "random"),
+    (4, 64, 128, 300, 8, 3, "mixed"), (1, 64, 128, 300, 8, 3, "hub"),
+    (2, 16, 48, 37, 4, 2, "shuffled"), (1, 5, 33, 45, 3, 3, "random")])
+def test_bipartite_kernel_matches_plain(card, B, SF, SL, G, P, R, kind):
+    g = torch.Generator().manual_seed(SF * G + R)
+    f, l = _randn(g, B, SF, G), _randn(g, B, SL, G)
+    edge_f, edge_l, edge_mask = _edges(g, kind, B, SF, SL, P)
+    layers = [{s: {"w": _randn(g, 2 * G, G, scale=(2 * G) ** -0.5),
+                   "b": _randn(g, G, scale=0.1)} for s in ("wf", "wl")}
+              for _ in range(R)]
+    want = (f, l)
+    for ly in layers:
+        want = bip_ref.bipartite_round_ref(
+            *want, edge_f, edge_l, edge_mask, ly["wf"]["w"], ly["wl"]["w"],
+            ly["wf"]["b"], ly["wl"]["b"])
     on = lambda t: t.to(card)  # noqa: E731
-    got = bip_ops.bipartite_round(*map(on, (f, l, edge_f, edge_l,
-                                            edge_mask, *w, *b)))
+    lc = [{s: {k: on(v) for k, v in ly[s].items()} for s in ly}
+          for ly in layers]
+    args = tuple(map(on, (f, l, edge_f, edge_l, edge_mask)))
+    if R == 1:
+        run = lambda: bip_ops.bipartite_round(  # noqa: E731
+            *args, lc[0]["wf"]["w"], lc[0]["wl"]["w"], lc[0]["wf"]["b"],
+            lc[0]["wl"]["b"])
+    else:
+        run = lambda: bip_ops.bipartite_rounds(lc, *args)  # noqa: E731
+    got = run()
     n = bip_ops.bipartite_round.launches
-    again = bip_ops.bipartite_round(*map(on, (f, l, edge_f, edge_l,
-                                              edge_mask, *w, *b)))
+    again = run()
     torch.cuda.synchronize()
-    assert bip_ops.bipartite_round.launches == n + 1
+    assert bip_ops.bipartite_round.launches == n + 1     # one per event
     for a, a2, r in zip(got, again, want):
         torch.testing.assert_close(a.cpu(), r, rtol=GNN_TOL, atol=GNN_TOL)
         assert torch.equal(a, a2)          # fixed sum order: bitwise
@@ -111,7 +153,7 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(card):
     dispatch.gnn_rounds(p["gnn"], torch.zeros(16, 16, device=card),
                         torch.zeros(32, 16, device=card), e, e,
                         torch.ones(128, device=card), 32)
-    assert bip_ops.bipartite_round.launches == n + 2
+    assert bip_ops.bipartite_round.launches == n + 1     # all rounds
     n = wf_ops.masked_rowmin.launches
     dispatch.masked_rowmin(torch.ones(1, 8, 4, device=card),
                            torch.ones(1, 4, device=card))
