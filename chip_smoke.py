@@ -15,7 +15,12 @@ Phases, each printing one JSON line:
                  300 events of m4's 2000-flow `run`, each also bitwise
                  against a second launch; the water-filling row-min at
                  2000 flows and 80/96/128 links, B = 1 and 4, and a ragged
-                 shape, bitwise): errors, device times (CUDA-graph replay,
+                 shape, bitwise; the per-event water-filling at 2000 flows
+                 and 80/96/128 links, B = 4 padded, 60000 flows (its
+                 device-memory placement) and the real states with the
+                 most rounds and the most active flows over the first 1000
+                 events of flowsim_fast's `run`, bitwise against its plain
+                 version and a second launch): errors, device times (CUDA-graph replay,
                  so host overhead is excluded), bound, library call;
 4. full        — m4 at the paper's full width (M4Config defaults, seeded
                  random weights): `run` of one 2000-flow Table-2 scenario,
@@ -24,16 +29,19 @@ Phases, each printing one JSON line:
                  where the 32-round water-filling cap binds). Every flow
                  done, FCTs finite and positive, and the launch counters
                  show each path's kernels (m4: 2 GRU-pair launches and 1
-                 GNN launch per event; flowsim_fast: 32 row-min launches
-                 per event);
-5. profile     — a short run of each path under torch.profiler: device
-                 busy share, CUDA kernels launched per event, and the
-                 device time per event of each of the port's kernels;
+                 GNN launch per event; flowsim_fast: 1 water-filling
+                 launch per event and no row-min);
+5. profile     — m4 on a 100-flow scenario and flowsim_fast's 2000-flow
+                 `run` under torch.profiler: device busy share (for
+                 flowsim_fast also against its unprofiled `run`), CUDA
+                 kernels launched per event, and the device time per
+                 event of each of the port's kernels;
 6. cpu         — the card against the CPU: m4 with the same weights on a
                  200-flow scenario, flowsim_fast on the 2000-flow `run`
-                 scenario, FCTs at rtol 1e-4 (for flowsim_fast also the
-                 water-filling rounds per event, and, if the FCTs differ,
-                 the first event whose (fid, is_arrival) differs);
+                 scenario, FCTs at rtol 1e-4 (for flowsim_fast also a
+                 recording run on the card, counted: its per-event
+                 records (fid, kind, rounds, capped) against the CPU's,
+                 and the first event where they differ);
 7. closed_loop — the §5.4 closed loop (per-rack inflight 3) on a 2-client-
                  rack backlog of 500 flows through run_closed_loop, for m4
                  at full width and for flowsim_fast: every flow completes,
@@ -61,7 +69,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PORT_KERNELS = ("gru_pair_kernel", "bipartite_rounds_kernel",
-                "masked_rowmin_kernel")
+                "masked_rowmin_kernel", "waterfill_event_kernel")
 GRU_TOL = 1e-5
 GNN_TOL = 1e-4
 FCT_RTOL = 1e-4
@@ -339,27 +347,166 @@ def phase_rowmin(torch, dev, run_shape):
     return entry
 
 
+def event_bound(lists, rounds, nnz):
+    """Bound of one waterfill_event launch (ms, "bytes"|"operations"):
+    bytes = each input of the function once, the incidence in one encoding
+    (flow_links, 4 B N K), cap (4 B L) and active (B N), and each output
+    once (rates 4 B N, rounds 4 B, capped B); the kernel's own indices
+    (link_ptr, flow_entries) belong to its design, not to the function,
+    and are not counted. operations = sum over scenarios of rounds_b x
+    (2 nnz_b + 3 L + 2 N): per round a link-sum add or count per list
+    entry, a row-min compare per flow-link entry, a subtract, clamp and
+    divide per link, and theta's min and the tie compare per flow, all at
+    the fp32 rate."""
+    B, N, K = lists.flow_links.shape
+    L = lists.link_ptr.shape[1] - 1
+    nbytes = 4 * B * N * K + 4 * B * L + B * N + 4 * B * N + 4 * B + B
+    ops = sum(int(r) * (2 * int(z) + 3 * L + 2 * N)
+              for r, z in zip(rounds.tolist(), nnz.tolist()))
+    return bound_ms(ops, nbytes) + (ops, nbytes)
+
+
+def flowsim_states(torch, np, dev, req, events=1000):
+    """The states (active sets) that the water-filling of the first
+    `events` events of flowsim_fast's `run` of req sees on the card: the
+    one with the most rounds and the one with the most active flows."""
+    from repro_torch.core import flowsim_fast as ff
+    args = ff._to_device([ff._pack(req.topo, list(req.flows))], dev)
+    _, log = ff._event_scan_core(*args, num_events=events, record=True)
+    fid = log["fid"][0].cpu().numpy()
+    is_arr = log["is_arrival"][0].cpu().numpy()
+    rounds = log["rounds"][0].cpu().numpy()
+    active = np.zeros(req.num_flows, bool)
+    states = []
+    for e in range(events):
+        states.append(active.copy())
+        active[fid[e]] = is_arr[e]
+    counts = np.array([st.sum() for st in states])
+    picks = {"most_rounds": int(np.argmax(rounds)),
+             "most_active": int(np.argmax(counts))}
+    return args[0], args[1], {
+        tag: (e, torch.from_numpy(states[e])[None].to(dev), int(rounds[e]),
+              int(counts[e])) for tag, e in picks.items()}
+
+
+def event_case(torch, g, dev, B, N, L, real=None):
+    """Random incidence as the main path holds it: 2-4 links per flow,
+    every seventh flow on none and inactive (an active flow with no link
+    is never frozen: only padded flows have none), capacities 1-10 Gb/s,
+    70% of the flows active; `real` pads scenario b past its (n flows, l
+    links), and some padded flows are active, as late in run_many."""
+    idx = torch.rand(B, N, L, generator=g, device=dev).argsort(-1)[..., :4]
+    k = torch.randint(2, 5, (B, N, 1), generator=g, device=dev)
+    a = torch.zeros(B, N, L, device=dev).scatter_(
+        -1, idx, (torch.arange(4, device=dev) < k).float())
+    a[:, ::7] = 0.0
+    cap = torch.rand(B, L, generator=g, device=dev) * 9e9 + 1e9
+    active = torch.rand(B, N, generator=g, device=dev) < 0.7
+    active[:, ::7] = False
+    for b, (n, l) in enumerate(real or ()):
+        a[b, n:] = 0.0
+        a[b, :, l:] = 0.0
+        cap[b, l:] = 1.0
+    return a, cap, active
+
+
+def phase_event(torch, np, dev, req):
+    """The per-event water-filling against its plain version, bitwise (rates,
+    rounds, capped), and against a second launch. Returns the entry of
+    the real state with the most rounds."""
+    from repro_torch.kernels.waterfill import layout as wf_layout
+    from repro_torch.kernels.waterfill import ops as wf_ops
+    from repro_torch.kernels.waterfill import ref as wf_ref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for B, N, L in ((1, 2000, 80), (1, 2000, 96), (1, 2000, 128)):
+        cases.append((f"B{B}_N{N}_L{L}", *event_case(torch, g, dev, B, N, L),
+                      {}))
+    cases.append(("B4_padded", *event_case(
+        torch, g, dev, 4, 2000, 128,
+        real=[(2000, 96), (1200, 80), (600, 128), (1900, 80)]), {}))
+    cases.append(("B1_N60000_L128", *event_case(torch, g, dev, 1, 60000,
+                                                128), {}))
+    a_real, cap_real, picks = flowsim_states(torch, np, dev, req)
+    for tag, (e, act, _, n) in picks.items():
+        cases.append((f"real_{tag}", a_real, cap_real, act,
+                      {"event": e, "events_scanned": 1000, "active": n}))
+    entry = None
+    for tag, a, cap, active, extra in cases:
+        lists = wf_layout.incidence_lists(a)
+        a64 = a.double()
+        B, N, L = a.shape
+
+        def kernel(lists=lists, cap=cap, active=active):
+            return wf_ops.waterfill_event(lists, cap, active)
+
+        def plain(a64=a64, cap=cap, active=active):
+            return wf_ref.waterfill_event_ref(a64, cap, active)
+
+        got, again, want = kernel(), kernel(), plain()
+        for name, x, x2, w in zip(("rates", "rounds", "capped"), got, again,
+                                  want):
+            if not torch.equal(x, w):
+                raise AssertionError(f"waterfill_event {tag} {name}: the "
+                                     "kernel differs from its plain version")
+            if not torch.equal(x, x2):
+                raise AssertionError(f"waterfill_event {tag} {name}: two "
+                                     "launches differ")
+        rounds = want[1]
+        nnz = lists.link_ptr[:, -1]
+        b_ms, b_by, ops, nbytes = event_bound(lists, rounds, nnz)
+        smem, scratch = wf_layout.plan(N, L, lists.flow_links.shape[2],
+                                       lists.nnz)
+        row = dict(
+            shape=[B, N, L], K=lists.flow_links.shape[2],
+            nnz=nnz.tolist(), rounds=rounds.tolist(),
+            capped=want[2].tolist(),
+            placement="shared memory" if smem else "device memory",
+            smem_bytes=smem, scratch_bytes=scratch, **extra,
+            max_abs_err=float((got[0] - want[0]).abs().max()),
+            bitwise=True, bitwise_repeat=True,
+            ms=device_ms(torch, kernel),
+            plain_ms=device_ms(torch, plain, reps=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, ops=ops,
+            bytes=nbytes)
+        emit("kernel", name=f"waterfill_event/{tag}", **row)
+        if tag == "real_most_rounds":
+            entry = dict(
+                per=f"event: up to 32 rounds in one launch, B=1, N={N}, "
+                    f"L={L}, the real state with the most rounds "
+                    f"({int(rounds[0])}) over the first 1000 events",
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=None,
+                library="none: no single PyTorch call computes a "
+                        "water-filling")
+    return entry
+
+
 def run_counted(torch, fn):
     """Drive fn with every launch counter at 0; return its result, the
     counts it made and its wall time (synchronised)."""
     from repro_torch.kernels.bipartite.ops import bipartite_round
     from repro_torch.kernels.fused_gru.ops import gru_pair
-    from repro_torch.kernels.waterfill.ops import masked_rowmin
+    from repro_torch.kernels.waterfill.ops import (masked_rowmin,
+                                                   waterfill_event)
     torch.cuda.synchronize()
     gru_pair.launches = bipartite_round.launches = 0
-    masked_rowmin.launches = 0
+    masked_rowmin.launches = waterfill_event.launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return out, {"fused_gru_pair": gru_pair.launches,
                  "bipartite_round": bipartite_round.launches,
-                 "masked_rowmin": masked_rowmin.launches}, wall
+                 "masked_rowmin": masked_rowmin.launches,
+                 "waterfill_event": waterfill_event.launches}, wall
 
 
-def launches(gru=0, gnn=0, rowmin=0):
+def launches(gru=0, gnn=0, rowmin=0, event=0):
     return {"fused_gru_pair": gru, "bipartite_round": gnn,
-            "masked_rowmin": rowmin}
+            "masked_rowmin": rowmin, "waterfill_event": event}
 
 
 def check_fcts(np, results, reqs):
@@ -383,7 +530,7 @@ def phase_full(torch, np, name, backend, req, reqs, want_per_event, smi):
         raise AssertionError(f"{name} run: launches {counts}, expected {want}")
     emit("full", path=name, entry="run", flows=req.num_flows, events=events,
          wall_s=wall, events_per_s=events / wall, launches=counts, card=smi)
-    run_res, run_launches = res, counts
+    run_res, run_launches, run_rate = res, counts, events / wall
 
     results, counts, wall = run_counted(torch, lambda: backend.run_many(reqs))
     check_fcts(np, results, reqs)
@@ -396,11 +543,14 @@ def phase_full(torch, np, name, backend, req, reqs, want_per_event, smi):
          events=events, wall_s=wall, events_per_s=events / wall,
          scenario_events_per_s=len(reqs) * events / wall, launches=counts,
          card=smi)
-    return run_res, run_launches
+    return run_res, run_launches, run_rate
 
 
-def phase_profile(torch, name, backend, req, smi):
-    """Where the time goes: one short run under the profiler."""
+def phase_profile(torch, name, backend, req, smi, events_per_s=None):
+    """Where the time goes: one run under the profiler. With the
+    events/s of the same run unprofiled, also the busy share it implies
+    (device time per event x events/s), free of the profiler's own host
+    cost."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -423,6 +573,8 @@ def phase_profile(torch, name, backend, req, smi):
          wall_s=wall,
          cuda_kernels_per_event=len(kernels) / events if kernels else None,
          device_busy_share=(busy_us * 1e-6 / wall) if kernels else None,
+         device_busy_share_unprofiled=(busy_us * 1e-6 / events * events_per_s
+                                       if events_per_s else None),
          device_us_per_event=busy_us / events,
          port_kernel_device_us_per_event=ours,
          top_device_us=[(e.key, e.device_time_total) for e in top],
@@ -442,9 +594,10 @@ def compare_fcts(np, name, gpu, cpu, flows, **extra):
 
 def phase_cpu_flowsim_fast(torch, np, req, run_res, dev):
     """flowsim_fast's `run` on the card against the CPU on the same
-    scenario; the CPU run records every event, which gives the
-    water-filling rounds per event and, should the FCTs differ, the first
-    event where a recording run on the card takes another (fid, kind)."""
+    scenario; both runs record every event (the card's counted: one
+    water-filling launch per event), which gives the water-filling rounds
+    per event and the first event whose records (fid, kind, rounds,
+    capped) differ, if any."""
     from repro_torch.core import flowsim_fast as ff
     packed = [ff._pack(req.topo, list(req.flows))]
     arr = np.array([f.t_arrival for f in req.flows])
@@ -458,16 +611,21 @@ def phase_cpu_flowsim_fast(torch, np, req, run_res, dev):
                 time.perf_counter() - t0)
 
     c_fct, c_log, c_wall = recorded("cpu")
-    first = None
-    if not np.allclose(run_res.fcts, c_fct, rtol=FCT_RTOL, atol=0.0):
-        _, g_log, _ = recorded(dev)
-        same = (g_log["fid"] == c_log["fid"]) \
-            & (g_log["is_arrival"] == c_log["is_arrival"])
-        first = None if same.all() else int(np.argmin(same))
+    (g_fct, g_log, _), counts, _ = run_counted(torch, lambda: recorded(dev))
+    events = 2 * req.num_flows
+    if counts != launches(event=events):
+        raise AssertionError(f"flowsim_fast recorded run: launches {counts}, "
+                             f"expected {launches(event=events)}")
+    same = np.ones(events, bool)
+    for k in ("fid", "is_arrival", "rounds", "capped"):
+        same &= g_log[k] == c_log[k]
+    first = None if same.all() else int(np.argmin(same))
     rounds, capped = c_log["rounds"], c_log["capped"]
     compare_fcts(
         np, "flowsim_fast", run_res.fcts, c_fct, req.num_flows,
-        first_diverging_event=first, cpu_wall_s=c_wall,
+        first_diverging_event=first, records_equal=bool(same.all()),
+        recorded_run_bitwise_equal=bool(np.array_equal(g_fct, c_fct)),
+        recorded_run_launches=counts, cpu_wall_s=c_wall,
         rounds_mean=float(rounds[rounds > 0].mean()),
         rounds_max=int(rounds.max()),
         events_capped_share=float(capped.mean()),
@@ -547,24 +705,28 @@ def main() -> int:
     fs_req = req_of(1)          # the seed where the 32-round cap binds
     entries["masked_rowmin"] = phase_rowmin(
         torch, dev, (1, fs_req.num_flows, fs_req.topo.num_links))
+    entries["waterfill_event"] = phase_event(torch, np, dev, fs_req)
 
     # ---- the main paths at full size; warm-ups (cuBLAS handles,
     # allocator pools) are not counted
     m4 = get_backend("m4", params=params, cfg=cfg)
     m4.run(req_of(7, num_flows=20))
-    _, run_launches = phase_full(
+    _, run_launches, _ = phase_full(
         torch, np, "m4", m4, req_of(0), [req_of(s) for s in range(4)],
         launches(2, 1), smi)
     fs = get_backend("flowsim_fast")
     fs.run(req_of(7, num_flows=20))
-    fs_res, fs_launches = phase_full(
+    fs_res, fs_launches, fs_rate = phase_full(
         torch, np, "flowsim_fast", fs, fs_req, [req_of(s) for s in range(4)],
-        launches(rowmin=32), smi)
-    run_launches["masked_rowmin"] = fs_launches["masked_rowmin"]
+        launches(event=1), smi)
+    for k in ("masked_rowmin", "waterfill_event"):
+        run_launches[k] = fs_launches[k]
 
-    # ---- where the time goes: one short run of each path
+    # ---- where the time goes: a short run of m4 (its event step has the
+    # same shapes at any flow count) and flowsim_fast's 2000-flow `run`
+    # (its kernel's time grows with the active flows and the rounds)
     phase_profile(torch, "m4", m4, req_of(3, num_flows=100), smi)
-    phase_profile(torch, "flowsim_fast", fs, req_of(3, num_flows=50), smi)
+    phase_profile(torch, "flowsim_fast", fs, fs_req, smi, fs_rate)
 
     # ---- the card against the CPU
     creq = req_of(5, num_flows=200)
@@ -581,7 +743,9 @@ def main() -> int:
                "bipartite_round": ("src/repro_torch/kernels/csrc/bipartite.cu",
                                    "src/repro/kernels/bipartite/kernel.py:27"),
                "masked_rowmin": ("src/repro_torch/kernels/csrc/waterfill.cu",
-                                 "src/repro/kernels/waterfill/kernel.py:21")}
+                                 "src/repro/kernels/waterfill/kernel.py:21"),
+               "waterfill_event": ("src/repro_torch/kernels/csrc/waterfill.cu",
+                                   "src/repro/kernels/waterfill/kernel.py:21")}
     line = []
     for name, e in entries.items():
         src, replaces = sources[name]

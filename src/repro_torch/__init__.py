@@ -8,8 +8,9 @@ reference it is held against, but imports nothing of it (nor `jax`):
     repro_torch.data       the Table-2 traffic generator
     repro_torch.nn         linear / mlp / gru_cell on (d_in, d_out) weights
     repro_torch.kernels    the fused GRU pair, the bipartite GraphSAGE round
-                           and flowSim's water-filling row-min: CUDA
-                           kernels on a card, plain PyTorch on the CPU
+                           and flowSim's water-filling (an event's rounds
+                           in one launch; the row-min alone): CUDA kernels
+                           on a card, plain PyTorch on the CPU
     repro_torch.core       M4Config, the model, m4's open and closed loops,
                            flowSim (numpy) and flowsim_fast, make_backlog
     repro_torch.sim        SimRequest / SimResult, the backend registry

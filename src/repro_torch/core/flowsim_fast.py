@@ -2,24 +2,25 @@
 as a Python loop of 2N flow-level events over dense incidence arenas.
 
 Each event recomputes the max-min rates of the active flows by
-progressive water-filling (`_waterfill_masked`): exactly `MAX_ROUNDS` =
-32 rounds, each two link sums over the incidence, the per-flow masked
-row-min (`repro_torch.kernels.dispatch.masked_rowmin`: the hand-written
-CUDA kernel for a CUDA tensor, the plain version for a CPU one) and a
-freeze step. Once every flow is frozen a round changes nothing, so the
-fixed count equals the reference's `while_loop` and needs no host sync;
-where 32 rounds do not freeze every flow, the flows left get rate 0 for
-that event, as in the reference. Then the next arrival races the earliest
-departure and the remaining sizes drain linearly.
+progressive water-filling, up to `MAX_ROUNDS` = 32 rounds, in one call
+of `repro_torch.kernels.dispatch.waterfill_event`: for a CUDA tensor one
+launch of the hand-written kernel, which holds the event in shared
+memory and stops once every flow is frozen; for a CPU tensor the plain
+version (`kernels/waterfill/ref.py`), exactly 32 dense rounds (once every
+flow is frozen a round changes nothing, so the fixed count equals the
+reference's `while_loop` and needs no host sync). Where 32 rounds do not
+freeze every flow, the flows left get rate 0 for that event, as in the
+reference. Then the next arrival races the earliest departure and the
+remaining sizes drain linearly.
 
 Arenas carry a leading batch axis B, one scenario per row
 (`run_flowsim_fast` is B = 1); `run_flowsim_fast_batch` pads B scenarios
 to one shape. Everything is float32, as the reference runs with x64 off.
-The two link sums (unfrozen flows per link, rate in use per link) are
-taken exactly in float64 and rounded once to float32: the reference
-leaves their summation order to XLA, and an exact sum makes the card and
-the CPU agree bitwise, so a tie in the freeze test or the departure race
-cannot break one way on the card and the other on the CPU.
+The two link sums of a round (unfrozen flows per link, rate in use per
+link) are taken exactly, in float64, and rounded once to float32: the
+reference leaves their summation order to XLA, and an exact sum makes
+the card and the CPU agree bitwise, so a tie in the freeze test or the
+departure race cannot break one way on the card and the other on the CPU.
 """
 from __future__ import annotations
 
@@ -29,49 +30,8 @@ import numpy as np
 import torch
 
 from ..kernels import dispatch
+from ..kernels.waterfill.ref import BIG, MAX_ROUNDS, TIE  # noqa: F401
 from .flowsim import FlowSimResult
-
-BIG = 1e30
-MAX_ROUNDS = 32
-# the reference's tie test `f_share <= theta * (1 + 1e-9)` runs in
-# float32, where 1 + 1e-9 rounds to 1: it is an equality test, kept as is
-TIE = 1 + 1e-9
-
-
-def _waterfill_round(a, a64, cap, rates, frozen):
-    """One progressive-filling round. a: (B, N, L) float32 0/1 incidence
-    and a64 its float64 copy; cap: (B, L); rates: (B, N); frozen: (B, N)
-    bool. Returns (rates, frozen)."""
-    unfrozen = ~frozen
-    # (B, 2, N) @ (B, N, L): flows per link, rate in use per link (exact)
-    lhs = torch.stack([unfrozen, frozen], 1).to(torch.float64)
-    lhs[:, 1] *= rates
-    n_l, used = torch.bmm(lhs, a64).to(torch.float32).unbind(1)
-    avail = torch.clamp_min(cap - used, 0.0)
-    share = torch.where(n_l > 0, avail / n_l.clamp_min(1.0), BIG)
-    f_share = dispatch.masked_rowmin(a, share)
-    theta = torch.where(unfrozen, f_share, BIG).amin(-1, keepdim=True)
-    newly = unfrozen & (f_share <= theta * TIE)
-    return torch.where(newly, f_share, rates), frozen | newly
-
-
-def _waterfill_masked(a, a64, cap, active, *, max_rounds=MAX_ROUNDS,
-                      stats=None):
-    """Max-min rates of the active flows (B, N); zero for inactive ones.
-    A dict `stats` receives, per scenario, the rounds the reference's
-    `while_loop` runs ("rounds") and whether 32 rounds left some flow
-    unfrozen ("capped")."""
-    rates = torch.zeros(active.shape, dtype=torch.float32,
-                        device=active.device)
-    frozen = ~active
-    rounds = 0
-    for _ in range(max_rounds):
-        if stats is not None:
-            rounds = rounds + ~frozen.all(-1)
-        rates, frozen = _waterfill_round(a, a64, cap, rates, frozen)
-    if stats is not None:
-        stats["rounds"], stats["capped"] = rounds, ~frozen.all(-1)
-    return torch.where(active, rates, 0.0)
 
 
 @torch.inference_mode()
@@ -80,10 +40,11 @@ def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
     """2N events (or `num_events`) over (B, N, L) arenas. Returns the
     absolute completion times (B, N); with `record`, also a dict of
     per-event (B, events) records: "fid", "is_arrival", and the
-    water-filling's "rounds" and "capped" (see `_waterfill_masked`)."""
+    water-filling's "rounds" and "capped" (see
+    `repro_torch.kernels.waterfill.ref.waterfill_event_ref`)."""
     B, N, _ = a.shape
     dev = a.device
-    a64 = a.to(torch.float64)
+    incidence = dispatch.waterfill_incidence(a)    # fixed for the run
     b1 = torch.arange(B, device=dev)
     remaining = torch.zeros(B, N, device=dev)
     active = torch.zeros(B, N, dtype=torch.bool, device=dev)
@@ -91,10 +52,10 @@ def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
     ptr = torch.zeros(B, dtype=torch.long, device=dev)
     t = torch.zeros(B, device=dev)
     length = 2 * N if num_events is None else num_events
-    stats = {} if record else None
     log = {k: [] for k in ("fid", "is_arrival", "rounds", "capped")}
     for _ in range(length):
-        rates = _waterfill_masked(a, a64, cap, active, stats=stats)
+        rates, rounds, capped = dispatch.waterfill_event(
+            incidence, cap, active, max_rounds=MAX_ROUNDS)
         tta = torch.where(active & (rates > 0),
                           remaining / rates.clamp_min(1e-9), BIG)
         dep_i = tta.argmin(1)                  # first index on ties
@@ -114,7 +75,8 @@ def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
         ptr = ptr + is_arr.long()
         t = t_ev
         if record:
-            for k, v in (("fid", fid), ("is_arrival", is_arr), *stats.items()):
+            for k, v in (("fid", fid), ("is_arrival", is_arr),
+                         ("rounds", rounds), ("capped", capped)):
                 log[k].append(v)
     if not record:
         return fct

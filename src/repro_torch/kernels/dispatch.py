@@ -1,4 +1,4 @@
-"""The kernel-backed primitives of m4's event and flowSim's round, routed
+"""The kernel-backed primitives of m4's event and flowSim's event, routed
 by device.
 
 A CPU tensor goes to the plain PyTorch version; a CUDA tensor goes to the
@@ -7,6 +7,8 @@ override and no fallback: the device the caller chose decides, and
 `repro_torch.sim` names it in the backend fingerprint.
 """
 from __future__ import annotations
+
+import torch
 
 from .bipartite import ref as bipartite_ref
 from .fused_gru import ref as gru_ref
@@ -44,3 +46,26 @@ def masked_rowmin(a, share):
         return waterfill_ref.masked_rowmin_ref(a, share)
     from .waterfill.ops import masked_rowmin as rowmin_kernel
     return rowmin_kernel(a, share)
+
+
+def waterfill_incidence(a):
+    """The (B, N, L) 0/1 incidence of a flowSim run in the form its
+    device's `waterfill_event` reads, built once per run: on the CPU the
+    dense incidence in float64 (which saves the plain version a cast per
+    round), on the card `waterfill.layout.incidence_lists(a)`."""
+    if _on_cpu(a):
+        return a.to(torch.float64)
+    from .waterfill.layout import incidence_lists
+    return incidence_lists(a)
+
+
+def waterfill_event(incidence, cap, active, *, max_rounds):
+    """One flowSim event's max-min water-filling for B scenarios:
+    `incidence` from `waterfill_incidence`; cap (B, L); active (B, N)
+    bool. Returns (rates, rounds, capped), see
+    `waterfill.ref.waterfill_event_ref`."""
+    if _on_cpu(active):
+        return waterfill_ref.waterfill_event_ref(incidence, cap, active,
+                                                 max_rounds=max_rounds)
+    from .waterfill.ops import waterfill_event as event_kernel
+    return event_kernel(incidence, cap, active, max_rounds=max_rounds)

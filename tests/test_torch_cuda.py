@@ -6,8 +6,9 @@ GPU and skips without one; on a machine with a card run
 
 Tolerances: 1e-5 for the GRU pair, 1e-4 for the GNN rounds (those of
 tests/test_kernels.py), none for the water-filling row-min (a min is
-exact: bitwise), 1e-4 relative for FCTs from the card against the CPU
-(kernels and CPU BLAS sum in other orders)."""
+exact: bitwise) and for the per-event water-filling (its link sums are
+exact: bitwise, rounds and capped too), 1e-4 relative for FCTs from the
+card against the CPU (kernels and CPU BLAS sum in other orders)."""
 import numpy as np
 import pytest
 
@@ -20,6 +21,7 @@ from repro_torch.kernels.bipartite import ops as bip_ops  # noqa: E402
 from repro_torch.kernels.bipartite import ref as bip_ref  # noqa: E402
 from repro_torch.kernels.fused_gru import ops as gru_ops  # noqa: E402
 from repro_torch.kernels.fused_gru import ref as gru_ref  # noqa: E402
+from repro_torch.kernels.waterfill import layout as wf_layout  # noqa: E402
 from repro_torch.kernels.waterfill import ops as wf_ops  # noqa: E402
 from repro_torch.kernels.waterfill import ref as wf_ref  # noqa: E402
 from repro_torch.net import FatTree, NetConfig  # noqa: E402
@@ -158,6 +160,13 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(card):
     dispatch.masked_rowmin(torch.ones(1, 8, 4, device=card),
                            torch.ones(1, 4, device=card))
     assert wf_ops.masked_rowmin.launches == n + 1
+    n = wf_ops.waterfill_event.launches
+    a = torch.ones(1, 8, 4, device=card)
+    dispatch.waterfill_event(dispatch.waterfill_incidence(a),
+                             torch.ones(1, 4, device=card),
+                             torch.ones(1, 8, dtype=torch.bool, device=card),
+                             max_rounds=32)
+    assert wf_ops.waterfill_event.launches == n + 1
 
 
 @pytest.mark.parametrize("B,F,L", [
@@ -176,6 +185,82 @@ def test_rowmin_kernel_equals_plain_bitwise(card, B, F, L):
     assert wf_ops.masked_rowmin.launches == n + 1
     assert torch.equal(got.cpu(), want)
 
+def _event_case(seed, B, N, L, real=None):
+    """B scenarios of N flows over L links: 2-4 links per flow, every
+    seventh flow on none, capacities 1-10 Gb/s, 70% of the flows active.
+    `real` [(n, l), ...] pads scenario b past its n flows and l links, as
+    run_many does (no links, capacity 1, padded flows active too)."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.rand(B, N, L, generator=g).argsort(-1)[..., :4]
+    k = torch.randint(2, 5, (B, N, 1), generator=g)
+    a = torch.zeros(B, N, L).scatter_(
+        -1, idx, (torch.arange(4) < k).float())
+    a[:, ::7] = 0.0
+    cap = torch.rand(B, L, generator=g) * 9e9 + 1e9
+    active = torch.rand(B, N, generator=g) < 0.7
+    for b, (n, l) in enumerate(real or ()):
+        a[b, n:] = 0.0
+        a[b, :, l:] = 0.0
+        cap[b, l:] = 1.0
+        active[b, n:] = torch.rand(N - n, generator=g) < 0.5
+    return a, cap, active
+
+
+def _event_equal(card, a, cap, active):
+    want = wf_ref.waterfill_event_ref(a.double(), cap, active)
+    a_c = a.to(card)
+    lists = wf_layout.incidence_lists(a_c)
+    n = wf_ops.waterfill_event.launches
+    got = wf_ops.waterfill_event(lists, cap.to(card), active.to(card))
+    again = wf_ops.waterfill_event(lists, cap.to(card), active.to(card))
+    torch.cuda.synchronize()
+    assert wf_ops.waterfill_event.launches == n + 2
+    for x, x2, w in zip(got, again, want):
+        assert x.dtype == w.dtype and torch.equal(x.cpu(), w)
+        assert torch.equal(x, x2)
+    return want
+
+
+@pytest.mark.parametrize("B,N,L", [(1, 2000, 80), (1, 2000, 96),
+                                   (1, 2000, 128), (3, 129, 37),
+                                   (2, 1, 1), (1, 40, 40)])
+def test_waterfill_event_kernel_equals_plain_bitwise(card, B, N, L):
+    _event_equal(card, *_event_case(N + L, B, N, L))
+
+
+def test_waterfill_event_kernel_on_a_padded_batch(card):
+    a, cap, active = _event_case(7, 4, 2000, 128,
+                                 real=[(2000, 96), (1200, 80), (600, 128),
+                                       (1900, 80)])
+    _event_equal(card, a, cap, active)
+    # padded flows only: every active flow has no link
+    a[:, :] = 0.0
+    _, rounds, capped = _event_equal(card, a, cap, active)
+    assert capped.all() and (rounds == 32).all()
+
+
+def test_waterfill_event_kernel_where_the_cap_binds(card):
+    n = 40                      # each flow alone on a link: one per round
+    a = torch.eye(n)[None]
+    cap = torch.linspace(1e9, 10e9, n).flip(0)[None].contiguous()
+    _, rounds, capped = _event_equal(card, a, cap,
+                                     torch.ones(1, n, dtype=torch.bool))
+    assert capped.all() and int(rounds) == 32
+
+
+def test_waterfill_event_kernel_with_arrays_in_device_memory(card):
+    """At 60000 flows the event does not fit in shared memory: the kernel
+    reads the lists from its inputs and keeps the flow state in device
+    memory."""
+    N = 60000
+    a, cap, active = _event_case(N, 1, N, 128)
+    lists = wf_layout.incidence_lists(a)
+    smem, scratch = wf_layout.plan(N, 128, lists.flow_links.shape[2],
+                                   lists.nnz)
+    assert smem == 0 and scratch > 0
+    _event_equal(card, a, cap, active)
+
+
 def test_run_on_the_card_matches_the_cpu(card):
     cfg = M4Config(**GATE)
     params = init_m4(0, cfg)
@@ -193,8 +278,10 @@ def test_flowsim_fast_on_the_card_matches_the_cpu(card):
     reqs = [SimRequest.from_scenario(sample_scenario(s, num_flows=n))
             for s, n in ((1, 300), (2, 200), (3, 250))]
     n = wf_ops.masked_rowmin.launches
+    n_event = wf_ops.waterfill_event.launches
     gpu = get_backend("flowsim_fast").run_many(reqs)
-    assert wf_ops.masked_rowmin.launches == n + 32 * 2 * 300
+    assert wf_ops.waterfill_event.launches == n_event + 2 * 300
+    assert wf_ops.masked_rowmin.launches == n
     cpu = get_backend("flowsim_fast", device="cpu").run_many(reqs)
     for a, b in zip(gpu, cpu):
         assert np.isfinite(a.fcts).all() and (a.fcts > 0).all()

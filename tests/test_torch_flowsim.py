@@ -107,21 +107,28 @@ def test_run_many_equals_looped_run():
 
 
 def test_event_scan_runs_32_rowmins_per_event_and_records(monkeypatch):
+    """One `dispatch.waterfill_event` per event; on the CPU its plain
+    version runs 32 dense rounds, one row-min each."""
     from repro_torch.kernels import dispatch
-    calls = []
-    real = dispatch.masked_rowmin
-    monkeypatch.setattr(dispatch, "masked_rowmin",
-                        lambda a, s: calls.append(1) or real(a, s))
+    from repro_torch.kernels.waterfill import ref as wf_ref
+    events, rowmins = [], []
+    real_event, real_rowmin = dispatch.waterfill_event, wf_ref.masked_rowmin_ref
+    monkeypatch.setattr(dispatch, "waterfill_event", lambda *a, **k:
+                        events.append(1) or real_event(*a, **k))
+    monkeypatch.setattr(wf_ref, "masked_rowmin_ref", lambda a, s:
+                        rowmins.append(1) or real_rowmin(a, s))
     req = _req(6, num_flows=10)
     args = tff._to_device([tff._pack(req.topo, list(req.flows))], "cpu")
     fct, log = tff._event_scan_core(*args, record=True)
-    assert len(calls) == tff.MAX_ROUNDS * 2 * req.num_flows
+    assert len(events) == 2 * req.num_flows
+    assert len(rowmins) == tff.MAX_ROUNDS * 2 * req.num_flows
     ev_fid, ev_arr = log["fid"], log["is_arrival"]
     assert ev_arr.shape == (1, 20) and ev_arr.sum() == req.num_flows
     # an event's rates are those of the flows active before it: none
     # before the first arrival, so no round runs there
     rounds = log["rounds"][0]
     assert rounds[0] == 0 and 0 < rounds.max() <= tff.MAX_ROUNDS
+    assert rounds.dtype == torch.int32 and log["capped"].dtype == torch.bool
     assert not log["capped"].any()
     assert sorted(ev_fid[0, ev_arr[0]].tolist()) == list(range(10))
     assert sorted(ev_fid[0, ~ev_arr[0]].tolist()) == list(range(10))

@@ -6,10 +6,12 @@
   exact, so there is no tolerance;
 - the plain `waterfill` matches numpy flowSim's at rtol 1e-5, the bar of
   tests/test_kernels.py;
-- `_waterfill_masked` matches JAX's at rtol 1e-6 (float32 link sums in
-  another order), including a case where the 32-round cap binds;
-- the fixed 32 rounds equal an early-exit loop bitwise: once every flow
-  is frozen a round is a no-op.
+- `waterfill_event_ref` (the plain version of the per-event kernel and
+  flowsim_fast's CPU path) matches JAX's `_waterfill_masked` at rtol 1e-6
+  (float32 link sums in another order), including a case where the
+  32-round cap binds;
+- its fixed 32 rounds equal an early-exit loop bitwise, and its round
+  count is that loop's: once every flow is frozen a round is a no-op.
 """
 import numpy as np
 import pytest
@@ -75,9 +77,9 @@ def test_plain_waterfill_matches_numpy(F, L):
 
 
 def _port_masked(a, cap, active):
-    a_t = T(a)[None]
-    return tff._waterfill_masked(a_t, a_t.double(), T(cap)[None],
-                                 T(active)[None])[0].numpy()
+    rates, _, _ = ref.waterfill_event_ref(T(a)[None], T(cap)[None],
+                                          T(active)[None])
+    return rates[0].numpy()
 
 
 def _jax_masked(a, cap, active, mode):
@@ -134,16 +136,17 @@ def test_fixed_rounds_equal_early_exit():
         cap = rng.uniform(1e9, 10e9, (B, L)).astype(np.float32)
         active = T(rng.random((B, F)) < 0.8)
         a_t, cap_t = T(a), T(cap)
-        fixed = tff._waterfill_masked(a_t, a_t.double(), cap_t, active)
+        fixed, fixed_rounds, capped = ref.waterfill_event_ref(
+            a_t.double(), cap_t, active)
         rates = torch.zeros(B, F)
         frozen = ~active
-        rounds = 0
-        while not bool(frozen.all()) and rounds < tff.MAX_ROUNDS:
-            rates, frozen = tff._waterfill_round(a_t, a_t.double(), cap_t,
-                                                 rates, frozen)
-            rounds += 1
-        assert 0 < rounds < tff.MAX_ROUNDS         # the exit was early
+        rounds = torch.zeros(B, dtype=torch.int32)
+        while not bool(frozen.all()) and int(rounds.max()) < tff.MAX_ROUNDS:
+            rounds += ~frozen.all(-1)
+            rates, frozen = ref.waterfill_round_ref(a_t, cap_t, rates, frozen)
+        assert 0 < int(rounds.max()) < tff.MAX_ROUNDS  # the exit was early
         assert torch.equal(fixed, torch.where(active, rates, 0.0))
+        assert torch.equal(fixed_rounds, rounds) and not capped.any()
 
 
 def test_tie_factor_rounds_away_in_float32():

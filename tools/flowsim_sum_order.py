@@ -26,14 +26,15 @@ import torch
 
 from repro_torch.core import flowsim_fast as ff
 from repro_torch.data.traffic import sample_scenario
-from repro_torch.kernels import dispatch
+from repro_torch.kernels.waterfill import ref as wf_ref
 
 
 def float32_round(reverse: bool):
-    """`ff._waterfill_round` with float32 link sums, flows in forward or
-    reverse order."""
-    def round_(a, a64, cap, rates, frozen):
+    """`wf_ref.waterfill_round_ref` with float32 link sums, flows in
+    forward or reverse order."""
+    def round_(a, cap, rates, frozen):
         unfrozen = ~frozen
+        a = a.float()
         lhs = torch.stack([unfrozen.float(), rates * frozen], 1)
         if reverse:
             lhs, a = lhs.flip(-1), a.flip(1)
@@ -42,7 +43,7 @@ def float32_round(reverse: bool):
             a = a.flip(1)
         avail = torch.clamp_min(cap - used, 0.0)
         share = torch.where(n_l > 0, avail / n_l.clamp_min(1.0), ff.BIG)
-        f_share = dispatch.masked_rowmin(a, share)
+        f_share = wf_ref.masked_rowmin_ref(a, share)
         theta = torch.where(unfrozen, f_share, ff.BIG).amin(-1, keepdim=True)
         newly = unfrozen & (f_share <= theta * ff.TIE)
         return torch.where(newly, f_share, rates), frozen | newly
@@ -61,16 +62,16 @@ def main():
     flows = sc.generate()
     arr = np.array([f.t_arrival for f in flows])
     packed = ff._to_device([ff._pack(sc.topo, flows)], "cpu")
-    exact_round = ff._waterfill_round
+    exact_round = wf_ref.waterfill_round_ref
     runs = {}
     for name, fn in (("exact", exact_round),
                      ("float32", float32_round(False)),
                      ("float32_reversed", float32_round(True))):
-        ff._waterfill_round = fn
+        wf_ref.waterfill_round_ref = fn
         t0 = time.perf_counter()
         fct, log = ff._event_scan_core(*packed, record=True)
         runs[name] = (fct[0].numpy() - arr, log, time.perf_counter() - t0)
-    ff._waterfill_round = exact_round
+    wf_ref.waterfill_round_ref = exact_round
     fct0, log0, _ = runs["exact"]
     for name in ("float32", "float32_reversed"):
         fct, log, wall = runs[name]
