@@ -46,7 +46,26 @@ Phases, each printing one JSON line:
                  rack backlog of 500 flows through run_closed_loop, for m4
                  at full width and for flowsim_fast: every flow completes,
                  and m4's launch counters read 2 GRU-pair launches and 1
-                 GNN launch per event.
+                 GNN launch per event;
+8. train       — m4's training path at full width: the packet DES on two
+                 Table-2 scenarios, cut from 2000 to TRAIN_FLOWS = 1000
+                 flows (K = 2000 events each) to keep the phase near three
+                 minutes, and their event tensors; `fit` per sim (one
+                 epoch, two updates, the TrainConfig defaults) with
+                 seconds per update, teacher-forced events/s, peak device
+                 memory, each head's loss and the grad norm; one backward
+                 (200 events) in which every parameter leaf gets a
+                 finite, non-zero gradient; its forward and backward per
+                 event, timed and profiled (40 events); batch mode (both
+                 sims cut to 1000 events, one update); one update on the
+                 card against the CPU (200 events); resume from a
+                 checkpoint against an uninterrupted run, bitwise;
+                 `evaluate_m4` of the trained weights on a held-out
+                 2000-flow scenario (packet ground truth, numpy flowSim,
+                 m4 `run` on the card). The GRU and GNN counters stay at 0
+                 through every differentiated step (they take the plain
+                 versions by the keyword plain=True) and read 2 and 1 per
+                 event in the evaluation's `run`.
 
 Then the `kernels` line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the script
@@ -73,6 +92,7 @@ PORT_KERNELS = ("gru_pair_kernel", "bipartite_rounds_kernel",
 GRU_TOL = 1e-5
 GNN_TOL = 1e-4
 FCT_RTOL = 1e-4
+TRAIN_FLOWS = 1000     # flows of the train phase's sims (see phase_train)
 
 
 def emit(phase, **kw):
@@ -664,6 +684,231 @@ def phase_closed_loop(torch, np, m4, fs, cfg, smi):
              card=smi)
 
 
+def check_update(torch, name, got, want, p0, lr):
+    """Parameters after one AdamW update from p0 on two devices, by the
+    rule of tests/test_torch_training.py: AdamW's first step is about
+    lr * sign(g) per element, so where the gradient is well determined
+    (|g| above 1e-3 of its leaf's max; g read from the first moment,
+    m = 0.1 g) the updates agree at rtol 1e-3, and anywhere they differ
+    by at most 2 lr."""
+    from repro_torch.weights import tree_leaves
+    worst = 0.0
+    for (path, a), (_, b), (_, o), (_, m) in zip(
+            tree_leaves(got.params), tree_leaves(want.params),
+            tree_leaves(p0), tree_leaves(want.opt["m"])):
+        dg, dc = a.cpu() - o.cpu(), b.cpu() - o.cpu()
+        m = m.cpu().abs()
+        big = m > 1e-3 * m.max()
+        if not torch.allclose(dg[big], dc[big], rtol=1e-3, atol=0.0):
+            raise AssertionError(f"{name}: update of {path} differs beyond "
+                                 "rtol 1e-3 where its gradient is well "
+                                 "determined")
+        diff = float((dg - dc).abs().max())
+        if diff > 2 * lr * (1 + 1e-3):
+            raise AssertionError(f"{name}: update of {path} differs by "
+                                 f"{diff} > 2 lr")
+        worst = max(worst, diff)
+    return worst
+
+
+def phase_train(torch, np, cfg, dev, smi):
+    """m4's training path on the card: DES -> EventBatch -> fit (per sim,
+    batch) -> checkpoints and resume -> evaluate_m4. Returns the
+    evaluation's launch counts."""
+    import dataclasses
+    import tempfile
+    from repro_torch.core.events import build_event_batch
+    from repro_torch.core.training import combined_loss
+    from repro_torch.data.traffic import sample_scenario
+    from repro_torch.sim import SimRequest, get_backend
+    from repro_torch.train import (TrainConfig, evaluate_m4, fit,
+                                   init_state, load_state)
+    from repro_torch.weights import tree_digest, tree_leaves, tree_map
+
+    def log(*a):
+        print(*a, file=sys.stderr, flush=True)
+
+    clock = [time.perf_counter()]
+
+    def line(**kw):
+        """One `train` line, with the wall time since the last one (the
+        step and its set-up)."""
+        now = time.perf_counter()
+        emit("train", **kw, since_last_line_s=now - clock[0])
+        clock[0] = now
+
+    # ---- ground truth: the packet DES on two Table-2 scenarios, cut from
+    # 2000 to TRAIN_FLOWS flows to keep the phase near three minutes (a
+    # full-width update costs ~14-19 ms per event on the host)
+    cut_flows = f"num_flows 2000 -> {TRAIN_FLOWS}"
+    t0 = time.perf_counter()
+    reqs = [SimRequest.from_scenario(sample_scenario(s,
+                                                     num_flows=TRAIN_FLOWS))
+            for s in (0, 1)]
+    traces = [get_backend("packet").run(r).raw for r in reqs]
+    des_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = [build_event_batch(tr, cfg) for tr in traces]
+    build_s = time.perf_counter() - t0
+    line(step="ground_truth", flows=[r.num_flows for r in reqs],
+         events=[b.num_events for b in batches],
+         links=[b.num_links for b in batches], des_s=des_s,
+         build_event_batch_s=build_s, cut=cut_flows)
+
+    def fit_counted(name, bs, tc, **extra):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (state, hist), counts, wall = run_counted(torch, lambda: fit(
+            bs, cfg, tc, state=init_state(cfg, 0, device=dev), device=dev,
+            log=log))
+        if counts != launches():
+            raise AssertionError(f"train {name}: the differentiated step "
+                                 f"launched kernels {counts}")
+        h = hist[-1]
+        updates = len(bs) if tc.step_mode == "per_sim" else 1
+        k = max(b.num_events for b in bs)
+        if not all(np.isfinite(h[x]) for x in ("loss", "grad_norm")):
+            raise AssertionError(f"train {name}: loss or grad norm not "
+                                 "finite")
+        line(step=name, step_mode=tc.step_mode, sims=len(bs),
+             events_per_sim=k, updates=state.step, wall_s=wall,
+             s_per_update=h["step_s"] / updates,
+             events_per_s=len(bs) * k / h["step_s"],
+             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+             loss=h["loss"], sldn=h["sldn"], size=h["size"],
+             queue=h["queue"], grad_norm=h["grad_norm"], lr=h["lr"],
+             launches=counts, card=smi, **extra)
+        return state, hist
+
+    # ---- fit, per sim: one epoch over the two sims, the defaults
+    state, _ = fit_counted("fit_per_sim", batches, TrainConfig(epochs=1),
+                           cut=cut_flows)
+    trained = state.params
+    del state
+
+    # ---- gradient coverage: one backward on the card, sim 0 cut to 200
+    one = [build_event_batch(traces[0], cfg, max_events=200)]
+    k = one[0].num_events
+    b0 = {n: torch.from_numpy(v).to(dev) for n, v in
+          one[0].to_arrays().items()}
+    leaves = tree_map(lambda t: t.clone().requires_grad_(),
+                      init_state(cfg, 0, device=dev).params)
+
+    def backward():
+        combined_loss(leaves, cfg, b0)[0].backward()
+
+    _, counts, wall = run_counted(torch, backward)
+    dead = [p for p, l in tree_leaves(leaves)
+            if l.grad is None or not bool(torch.isfinite(l.grad).all())
+            or float(l.grad.abs().max()) == 0.0]
+    if dead or counts != launches():
+        raise AssertionError(f"gradient coverage: dead leaves {dead}, "
+                             f"launches {counts}")
+    line(step="gradient_coverage", events=k,
+         leaves=len(list(tree_leaves(leaves))), dead_leaves=0,
+         min_leaf_max_abs_grad=min(float(l.grad.abs().max())
+                                   for _, l in tree_leaves(leaves)),
+         wall_s=wall, launches=counts)
+
+    # ---- where the time goes: the first 40 of those events, forward
+    # alone, forward + backward, then that under the profiler (whose
+    # trace takes ~0.5 s per event to read back)
+    k = 40
+    b0 = {n: torch.from_numpy(v).to(dev) for n, v in build_event_batch(
+        traces[0], cfg, max_events=k).to_arrays().items()}
+
+    def forward():
+        combined_loss(leaves, cfg, b0)
+
+    _, _, fwd_wall = run_counted(torch, forward)
+    _, _, plain_wall = run_counted(torch, backward)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, _, wall = run_counted(torch, backward)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kernels)
+    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    line(step="profile", events=k, wall_s=wall,
+         forward_ms_per_event=1e3 * fwd_wall / k,
+         unprofiled_ms_per_event=1e3 * plain_wall / k,
+         cuda_kernels_per_event=len(kernels) / k,
+         device_us_per_event=busy_us / k,
+         device_busy_share=busy_us * 1e-6 / wall,
+         device_busy_share_unprofiled=busy_us * 1e-6 / plain_wall,
+         top_device_us=[(e.key, e.device_time_total) for e in top[:8]],
+         card=smi)
+    del leaves, b0
+
+    # ---- batch mode: one bucket of both sims, cut to 1000 events
+    cut = [build_event_batch(tr, cfg, max_events=1000) for tr in traces]
+    fit_counted("fit_batch", cut, TrainConfig(epochs=1, step_mode="batch"),
+                cut=f"{cut_flows}, max_events=1000")
+
+    # ---- the card against the CPU: one per-sim update, 200 events
+    tc = TrainConfig(epochs=1, shuffle=False)
+    gpu, gh = fit(one, cfg, tc, state=init_state(cfg, 0, device=dev),
+                  device=dev, log=log)
+    cpu, ch = fit(one, cfg, tc, state=init_state(cfg, 0, device="cpu"),
+                  device="cpu", log=log)
+    rel = {key: abs(gh[0][key] - ch[0][key]) / abs(ch[0][key])
+           for key in ("loss", "sldn", "size", "queue", "grad_norm")}
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"train card vs CPU: losses differ {rel}")
+    worst = check_update(torch, "train card vs CPU", gpu, cpu,
+                         init_state(cfg, 0, device="cpu").params,
+                         ch[0]["lr"])
+    line(step="card_vs_cpu", events=200, rel_diff=rel, rtol=1e-4,
+         max_abs_update_diff=worst, lr=ch[0]["lr"],
+         cpu_wall_s=ch[0]["wall_s"], card_wall_s=gh[0]["wall_s"])
+    del gpu, cpu
+
+    # ---- checkpoint and resume: 1 epoch, then 2, against 2 in one go
+    # (constant LR: the warmup-cosine schedule spans the configured epochs)
+    cut200 = [build_event_batch(tr, cfg, max_events=200) for tr in traces]
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(epochs=2, schedule="const",
+                         ckpt_dir=os.path.join(tmp, "resumed"))
+        fit(cut200, cfg, dataclasses.replace(tc, epochs=1),
+            state=init_state(cfg, 0, device=dev), device=dev, log=log)
+        resumed, rh = fit(cut200, cfg, tc,
+                          state=init_state(cfg, 0, device=dev), device=dev,
+                          log=log)
+        full, fh = fit(cut200, cfg, dataclasses.replace(tc, ckpt_dir=None),
+                       state=init_state(cfg, 0, device=dev), device=dev,
+                       log=log)
+        restored, done = load_state(tc.ckpt_dir, cfg, device=dev)
+    # tree_digest hashes every leaf's bytes: equal digests, bitwise trees
+    digests = (tree_digest(resumed.tree()), tree_digest(full.tree()),
+               tree_digest(restored.tree()))
+    if len(set(digests)) != 1 or done != 2 or \
+            [h["loss"] for h in rh] != [h["loss"] for h in fh]:
+        raise AssertionError(f"train resume: not bitwise (digests "
+                             f"{digests}, epochs {done})")
+    line(step="resume", events=200, sims=2, epochs=2,
+         schedule="const", bitwise=True, tree_digest=digests[0][:16],
+         updates=resumed.step)
+    del resumed, full, restored
+
+    # ---- evaluation of the trained weights on a held-out scenario
+    ereq = SimRequest.from_scenario(sample_scenario(2))
+    report, counts, wall = run_counted(torch, lambda: evaluate_m4(
+        trained, cfg, [ereq], device=dev))
+    events = 2 * ereq.num_flows
+    if counts != launches(2 * events, events):
+        raise AssertionError(f"evaluate_m4: launches {counts}, expected "
+                             f"{launches(2 * events, events)}")
+    if not (np.isfinite(report["m4_err_mean"])
+            and np.isfinite(report["flowsim_err_mean"])):
+        raise AssertionError(f"evaluate_m4: errors not finite {report}")
+    line(step="evaluate_m4", flows=ereq.num_flows, events=events,
+         m4_err_mean=report["m4_err_mean"],
+         flowsim_err_mean=report["flowsim_err_mean"], wall_s=wall,
+         launches=counts, card=smi)
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -738,6 +983,10 @@ def main() -> int:
 
     phase_closed_loop(torch, np, m4, fs, cfg, smi)
 
+    t0 = time.perf_counter()
+    eval_launches = phase_train(torch, np, cfg, dev, smi)
+    emit("train", step="phase", seconds=time.perf_counter() - t0)
+
     sources = {"fused_gru_pair": ("src/repro_torch/kernels/csrc/fused_gru.cu",
                                   "src/repro/kernels/fused_gru/kernel.py:21"),
                "bipartite_round": ("src/repro_torch/kernels/csrc/bipartite.cu",
@@ -751,7 +1000,7 @@ def main() -> int:
         src, replaces = sources[name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": run_launches[name],
-                     **e})
+                     "train_eval_launches": eval_launches[name], **e})
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,11 @@ embeddings, 200-d 2-layer MLPs, 9-d network-config vector input.
 The parameter tree is the one of `repro.core.model.init_m4`, so JAX
 weights load unchanged (`repro_torch.weights`). The GRU cells and GNN
 rounds run through `repro_torch.kernels.dispatch`: the CUDA kernels on a
-card, the plain versions on the CPU. Every function takes optional
-leading batch axes (the scenarios of `run_many`).
+card, the plain versions on the CPU. `plain=True` takes the plain versions
+on any device: the training step passes it, since the kernels define no
+backward (the counterpart of the JAX package's `kernel_mode="xla"` in
+`repro.core.training`). Every function takes optional leading batch axes
+(the scenarios of `run_many`, the sims of a training bucket).
 """
 from __future__ import annotations
 
@@ -99,12 +102,13 @@ def _with_cfg(x, cfg_vec):
 
 
 # ---------------------------------------------------------------- GNN
-def gnn_forward(params, cfg: M4Config, f_h, l_h, edge_f, edge_l, edge_mask):
+def gnn_forward(params, cfg: M4Config, f_h, l_h, edge_f, edge_l, edge_mask,
+                *, plain=False):
     """f_h: (..., SNAP_F, H), l_h: (..., SNAP_L, H) -> GNN embeddings."""
     f = torch.relu(linear(params["proj_f"], f_h))
     l = torch.relu(linear(params["proj_l"], l_h))
     return dispatch.gnn_rounds(params["gnn"], f, l, edge_f, edge_l,
-                               edge_mask, cfg.snap_links)
+                               edge_mask, cfg.snap_links, plain=plain)
 
 
 # ---------------------------------------------------------------- queries
@@ -126,20 +130,21 @@ def predict_queue(params, link_h):
 
 # ---------------------------------------------------------------- one event
 def temporal_update(params, cfg: M4Config, f_h, l_h, dt_f, dt_l,
-                    f_feat, l_feat, cfg_vec):
+                    f_feat, l_feat, cfg_vec, *, plain=False):
     """GRU-1 / GRU-A temporal advance of snapshot states."""
     xin_f = _with_cfg(torch.cat([time_feat(dt_f)[..., None], f_feat], -1),
                       cfg_vec)
     xin_l = _with_cfg(torch.cat([time_feat(dt_l)[..., None], l_feat], -1),
                       cfg_vec)
     return dispatch.gru_cell_pair(params["gru1"], params["gruA"],
-                                  xin_f, f_h, xin_l, l_h)
+                                  xin_f, f_h, xin_l, l_h, plain=plain)
 
 
 def spatial_update(params, cfg: M4Config, f_h, l_h, edge_f, edge_l,
-                   edge_mask, cfg_vec):
+                   edge_mask, cfg_vec, *, plain=False):
     """GNN + GRU-2/GRU-B state refresh."""
-    gf, gl = gnn_forward(params, cfg, f_h, l_h, edge_f, edge_l, edge_mask)
+    gf, gl = gnn_forward(params, cfg, f_h, l_h, edge_f, edge_l, edge_mask,
+                         plain=plain)
     return dispatch.gru_cell_pair(params["gru2"], params["gruB"],
                                   _with_cfg(gf, cfg_vec), f_h,
-                                  _with_cfg(gl, cfg_vec), l_h)
+                                  _with_cfg(gl, cfg_vec), l_h, plain=plain)

@@ -7,6 +7,20 @@ import ctypes
 import torch
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """A kernel defines no backward: refuse inputs that autograd would
+    differentiate through it, instead of returning outputs with no
+    `grad_fn` and so, silently, zero gradients upstream. The
+    differentiated step takes the plain versions by passing plain=True
+    (`repro_torch.core.model`, `repro_torch.kernels.dispatch`)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the kernel has no backward, and an input requires "
+            "grad; differentiate through the plain version instead "
+            "(plain=True in repro_torch.core.model and kernels.dispatch)")
+
+
 def on_card(name: str, t: torch.Tensor, dtype: torch.dtype,
             shape: tuple | None = None) -> None:
     if t.device.type != "cuda":

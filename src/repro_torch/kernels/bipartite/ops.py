@@ -7,7 +7,8 @@ wrapper checks device, dtype, shape and contiguity, allocates the outputs
 and the kernel's scratch (neighbour lists, aggregates, the rounds before
 the last) with `torch.empty`, raises when the launch is refused, and
 counts launches of the kernel, from either entry point, in
-`bipartite_round.launches`. It takes CUDA tensors only;
+`bipartite_round.launches`. It takes CUDA tensors only, and none that
+requires grad (the kernel has no backward);
 `repro_torch.kernels.dispatch` sends CPU tensors to the plain version in
 `ref.py`.
 
@@ -22,7 +23,7 @@ import ctypes
 import torch
 
 from .. import build
-from .._checks import on_card, ptr, raise_on_error, stream
+from .._checks import on_card, ptr, raise_on_error, refuse_grad, stream
 
 MAX_LAYERS = 8            # bipartite.cu's MAX_LAYERS
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
@@ -44,6 +45,9 @@ def bipartite_rounds(layers, f, l, edge_f, edge_l, edge_mask, *, out=None):
     (E,) int64, shared by the batch; edge_l: (..., E) int64; edge_mask:
     (..., E) float32. `out` = (f_out, l_out) to write into; fresh tensors
     when None. Returns the last round's (f', l')."""
+    refuse_grad("bipartite.bipartite_rounds", f, l, edge_mask,
+                *(layer[side][k] for layer in layers
+                  for side in ("wf", "wl") for k in ("w", "b")))
     R = len(layers)
     if not 1 <= R <= MAX_LAYERS:
         raise ValueError(f"the kernel runs 1 to {MAX_LAYERS} rounds, got {R}")

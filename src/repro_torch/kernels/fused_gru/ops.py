@@ -4,7 +4,8 @@
 one launch on the current stream. It checks device, dtype, shape and
 contiguity, allocates the outputs with `torch.empty`, raises when the
 launch is refused, and counts its launches in `gru_pair.launches`. It
-takes CUDA tensors only; `repro_torch.kernels.dispatch` sends CPU tensors
+takes CUDA tensors only, and none that requires grad (the kernel has no
+backward); `repro_torch.kernels.dispatch` sends CPU tensors
 to the plain version in `ref.py`.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ import ctypes
 import torch
 
 from .. import build
-from .._checks import on_card, ptr, raise_on_error, stream
+from .._checks import on_card, ptr, raise_on_error, refuse_grad, stream
 
 _CELL = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int]
 _ARGTYPES = _CELL + _CELL + [ctypes.c_int, ctypes.c_void_p]
@@ -45,6 +46,8 @@ def gru_pair(p_f, p_l, x_f, h_f, x_l, h_l):
     """x_f: (..., Din_f), h_f: (..., H); x_l: (..., Din_l), h_l: (..., H);
     p_*: {"wi": (Din, 3H), "wh": (H, 3H), "bi", "bh": (3H,)}. Leading
     axes are flattened into rows. Returns (h_f', h_l')."""
+    refuse_grad("fused_gru.gru_pair", x_f, h_f, x_l, h_l,
+                *p_f.values(), *p_l.values())
     H = h_f.shape[-1]
     if h_l.shape[-1] != H:
         raise ValueError(f"hidden widths differ: {H} vs {h_l.shape[-1]}")

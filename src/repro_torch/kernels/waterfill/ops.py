@@ -10,7 +10,8 @@ Each launches on the current stream, checks device, dtype, shape and
 contiguity, allocates its outputs (and the event kernel's scratch, where
 its flow state does not fit in shared memory) with `torch.empty`, raises
 when the launch is refused, and counts its launches in `.launches`. They
-take CUDA tensors only; `repro_torch.kernels.dispatch` sends CPU tensors
+take CUDA tensors only, and none that requires grad (the kernels have no
+backward); `repro_torch.kernels.dispatch` sends CPU tensors
 to the plain versions in `ref.py`.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ import ctypes
 import torch
 
 from .. import build
-from .._checks import on_card, ptr, raise_on_error, stream
+from .._checks import on_card, ptr, raise_on_error, refuse_grad, stream
 from .layout import IncidenceLists, plan
 from .ref import MAX_ROUNDS
 
@@ -40,6 +41,7 @@ def _kernel(name, argtypes):
 def masked_rowmin(a, share):
     """a: (..., F, L) 0/1 incidence; share: (..., L), float32. Leading axes
     are flattened into scenarios. Returns (..., F)."""
+    refuse_grad("waterfill.masked_rowmin", a, share)
     F, L = a.shape[-2:]
     lead = a.shape[:-2]
     on_card("a", a, torch.float32)
@@ -66,6 +68,7 @@ def waterfill_event(lists: IncidenceLists, cap, active, *,
     rounds (B,) int32, capped (B,) bool). Where the event does not fit in
     shared memory (`layout.plan`), the kernel keeps its flow state in a
     scratch of device memory, allocated here."""
+    refuse_grad("waterfill.waterfill_event", cap, active)
     B, N, K = lists.flow_links.shape
     L = lists.link_ptr.shape[1] - 1
     on_card("flow_links", lists.flow_links, torch.int32)

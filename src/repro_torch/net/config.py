@@ -1,8 +1,8 @@
 """Scenario records: the congestion-control `NetConfig` and the `Flow`.
 
-Copies of `repro.net.packetsim.NetConfig` and of the six scenario fields
-of `repro.net.packetsim.Flow`; the packet-level simulator's runtime fields
-stay with the JAX package, which alone runs that simulator.
+Copies of `repro.net.packetsim.NetConfig` and `repro.net.packetsim.Flow`:
+six scenario fields, then the runtime state that the packet-level
+simulator (`repro_torch.net.packetsim`) mutates while it runs a flow.
 """
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ from dataclasses import dataclass
 from typing import List
 
 import numpy as np
+
+MTU = 1000  # bytes
 
 
 @dataclass
@@ -41,3 +43,22 @@ class Flow:
     size: int
     t_arrival: float
     path: List[int]
+
+    # runtime (packet DES)
+    next_seq: int = 0
+    cum_acked: int = 0
+    window: float = MTU
+    alpha: float = 0.0
+    marked: int = 0
+    acked_in_round: int = 0
+    round_end: int = 0
+    last_md: float = -1.0
+    srtt: float = 0.0
+    prev_rtt: float = 0.0
+    done: bool = False
+    t_done: float = -1.0
+    rto_at: float = -1.0
+
+    @property
+    def remaining(self):
+        return self.size - self.cum_acked

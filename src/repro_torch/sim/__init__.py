@@ -7,18 +7,19 @@
     res = get_backend("flowsim_fast").run_many(reqs)
     cl = run_closed_loop(get_backend("flowsim"), topo, config, backlog, 3)
 
-Backends: "flowsim" (numpy max-min reference), "flowsim_fast" (flowSim on
-the card), "m4" (the learned simulator). Closed-loop workloads go through
+Backends: "packet" (the packet DES, ground truth), "flowsim" (numpy
+max-min reference), "flowsim_fast" (flowSim on the card), "m4" (the
+learned simulator). Closed-loop workloads go through
 `run_closed_loop(backend, ...)`.
 """
 from .api import SimRequest, SimResult
 from .backends import (Backend, FlowSimBackend, FlowSimFastBackend,
-                       M4Backend, get_backend, list_backends,
+                       M4Backend, PacketBackend, get_backend, list_backends,
                        register_backend)
 from .closedloop import (ClosedLoopResult, ClosedLoopSession, FlowSimSession,
                          run_closed_loop)
 
 __all__ = ["SimRequest", "SimResult", "Backend", "FlowSimBackend",
-           "FlowSimFastBackend", "M4Backend", "get_backend", "list_backends",
-           "register_backend", "ClosedLoopResult", "ClosedLoopSession",
-           "FlowSimSession", "run_closed_loop"]
+           "FlowSimFastBackend", "M4Backend", "PacketBackend", "get_backend",
+           "list_backends", "register_backend", "ClosedLoopResult",
+           "ClosedLoopSession", "FlowSimSession", "run_closed_loop"]

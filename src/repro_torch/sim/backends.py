@@ -1,10 +1,11 @@
 """The port's backend protocol and string-keyed registry.
 
 A registry of its own, beside `repro.sim`'s: the port plugs into nothing
-of the JAX package. Three simulators are registered:
+of the JAX package. Four simulators are registered:
 
     from repro_torch.sim import get_backend, run_closed_loop
 
+    get_backend("packet").run(req)                   # the DES, ground truth
     get_backend("flowsim").run(req)                  # numpy, the CPU baseline
     get_backend("flowsim_fast").run_many(reqs)       # flowSim on the card
     backend = get_backend("m4", params=params, cfg=cfg)   # device="cuda"
@@ -15,16 +16,20 @@ of the JAX package. Three simulators are registered:
 `flowsim_fast` and `m4` take `device`, which defaults to "cuda": they
 raise when no card is present and never carry on silently on the CPU.
 Pass device="cpu" to run the plain PyTorch versions of the kernels.
-`flowsim` is the numpy event loop on the host in both packages.
+`packet` and `flowsim` run on the host in both packages.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
+import time
 from typing import Callable, Dict, List, Sequence
 
 import torch
 
-from ..weights import params_to, weights_digest
+import numpy as np
+
+from ..weights import params_to, tree_digest
 from .api import SimRequest, SimResult
 
 _REGISTRY: Dict[str, Callable[..., "Backend"]] = {}
@@ -92,6 +97,37 @@ def resolve_device(device) -> torch.device:
 def _result(name, r) -> SimResult:
     return SimResult(fcts=r.fcts, slowdowns=r.slowdowns,
                      wall_time=r.wallclock, backend=name, raw=r)
+
+
+@register_backend("packet")
+class PacketBackend(Backend):
+    """The reduced packet-level DES (the ns-3 stand-in): ground truth. A
+    host-side event loop by nature, it takes no device; it has no
+    closed-loop session yet (`PacketSession` is not ported)."""
+
+    name = "packet"
+
+    def run(self, request: SimRequest) -> SimResult:
+        from ..net.packetsim import PacketSim
+        _no_probes(request)
+        flows = copy.deepcopy(list(request.flows))   # DES mutates flow state
+        t0 = time.perf_counter()
+        trace = PacketSim(request.topo, request.config,
+                          seed=request.seed).run(flows, until=request.until)
+        wall = time.perf_counter() - t0
+        done = np.array([f.done for f in trace.flows])
+        fcts = np.where(done, trace.fcts, np.nan)
+        sldn = np.where(done, trace.slowdowns, np.nan)
+        kw = {}
+        if request.record_events:
+            ev = trace.events
+            kw = dict(event_times=np.array([e.time for e in ev]),
+                      event_types=np.array([e.etype for e in ev]),
+                      event_fids=np.array([e.fid for e in ev]),
+                      event_remaining=tuple(tuple(e.remaining) for e in ev),
+                      event_queues=tuple(tuple(e.path_queues) for e in ev))
+        return SimResult(fcts=fcts, slowdowns=sldn, wall_time=wall,
+                         backend=self.name, raw=trace, **kw)
 
 
 @register_backend("flowsim")
@@ -181,10 +217,13 @@ class M4Backend(Backend):
     def fingerprint(self) -> str:
         """"m4_torch-<sha256 of cfg + weights>-k<cuda|torch>": distinct from
         the JAX package's "m4-..." so cached results never mix packages,
-        and from one device to the other (kernels vs plain versions)."""
+        and from one device to the other (kernels vs plain versions). The
+        weights enter as `tree_digest`, the digest that
+        `TrainState.weights_hash` reports and the JAX package's
+        `tree_digest` computes for the same weights."""
         if self._fingerprint is None:
             h = hashlib.sha256(
-                (repr(self.cfg) + weights_digest(self.params)).encode())
+                (repr(self.cfg) + tree_digest(self.params)).encode())
             kind = "cuda" if self.device.type == "cuda" else "torch"
             self._fingerprint = f"m4_torch-{h.hexdigest()[:16]}-k{kind}"
         return self._fingerprint

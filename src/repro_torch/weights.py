@@ -6,6 +6,10 @@ gate order r, z, n. The bridge therefore copies leaves and changes
 nothing else; `params_to_numpy(params_from_jax(tree))` is bitwise `tree`.
 The caller hands over the JAX tree as numpy arrays (`jax.device_get`), so
 this module needs no JAX.
+
+`tree_leaves` and `tree_digest` walk a tree in the order of
+`jax.tree_util` flattening, which the checkpoints and the weights identity
+of both packages share.
 """
 from __future__ import annotations
 
@@ -15,12 +19,17 @@ import numpy as np
 import torch
 
 
-def _map_tree(fn, tree):
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of `tree` and of the trees of its structure in
+    `rest`, leaf by leaf; dicts stay dicts, lists and tuples become
+    lists."""
     if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map_tree(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def params_from_jax(tree, device) -> dict:
@@ -31,37 +40,63 @@ def params_from_jax(tree, device) -> dict:
         if a.dtype != np.float32:
             raise TypeError(f"expected float32 weights, got {a.dtype}")
         return torch.from_numpy(np.array(a, copy=True)).to(device)
-    return _map_tree(leaf, tree)
+    return tree_map(leaf, tree)
 
 
 def params_to_numpy(params) -> dict:
     """The port's parameters -> the same tree of numpy arrays."""
-    return _map_tree(lambda t: t.detach().cpu().numpy(), params)
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
 
 
 def params_to(params, device) -> dict:
     """The same parameters on another device."""
-    return _map_tree(lambda t: t.to(device), params)
+    return tree_map(lambda t: t.to(device), params)
 
 
-def _leaves(params, prefix=""):
-    """(path, tensor) pairs, dict keys in sorted order, lists by index."""
-    if isinstance(params, dict):
-        for k in sorted(params):
-            yield from _leaves(params[k], f"{prefix}/{k}")
-    elif isinstance(params, (list, tuple)):
-        for i, v in enumerate(params):
-            yield from _leaves(v, f"{prefix}/{i}")
+def leaf_numpy(x) -> np.ndarray:
+    """A leaf of a tree (tensor on any device, or numpy) as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().contiguous().numpy()
+    return np.asarray(x)
+
+
+def tree_leaves(tree, prefix=""):
+    """(path, leaf) pairs in the order of `jax.tree_util` flattening: dict
+    keys sorted, lists and tuples by index. Paths are the JAX package's
+    `runtime.checkpoint._path_str`: keys and indices joined by "/", with
+    no leading slash."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{prefix}{i}/")
     else:
-        yield prefix, params
+        yield prefix[:-1], tree
 
 
-def weights_digest(params) -> str:
-    """sha256 over every leaf's path, dtype, shape and bytes in sorted key
-    order: equal weights give equal digests on any device."""
+def tree_map_with_path(fn, tree, prefix=""):
+    """fn(path, leaf) over the leaves of `tree`, paths as `tree_leaves`
+    gives them; the structure (dicts, lists, tuples) is kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
+def tree_digest(tree) -> str:
+    """sha256 over every leaf's path, dtype name and bytes, in flattening
+    order: the twin of the JAX package's `runtime.checkpoint.tree_digest`,
+    so one set of weights digests alike in both packages and on any
+    device. The m4 backend's fingerprint and `TrainState.weights_hash`
+    use it."""
     h = hashlib.sha256()
-    for path, t in _leaves(params):
-        a = t.detach().cpu().contiguous().numpy()
-        h.update(f"{path}|{a.dtype}|{a.shape}|".encode())
+    for path, leaf in tree_leaves(tree):
+        a = leaf_numpy(leaf)
+        h.update(path.encode())
+        h.update(str(a.dtype).encode())
         h.update(a.tobytes())
     return h.hexdigest()

@@ -27,6 +27,7 @@ from repro_torch.kernels.waterfill import ref as wf_ref  # noqa: E402
 from repro_torch.net import FatTree, NetConfig  # noqa: E402
 from repro_torch.sim import SimRequest, get_backend  # noqa: E402
 from repro_torch.sim import run_closed_loop  # noqa: E402
+from repro_torch.weights import tree_leaves  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -167,6 +168,77 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(card):
                              torch.ones(1, 8, dtype=torch.bool, device=card),
                              max_rounds=32)
     assert wf_ops.waterfill_event.launches == n + 1
+
+
+def test_kernels_refuse_inputs_that_require_grad(card):
+    cfg = M4Config(**GATE)
+    p = init_m4(0, cfg, device=card)
+    x = torch.zeros(16, 13, device=card, requires_grad=True)
+    h = torch.zeros(16, 16, device=card)
+    xl, hl = torch.zeros(32, 11, device=card), torch.zeros(32, 16, device=card)
+    f = torch.zeros(16, 16, device=card, requires_grad=True)
+    l = torch.zeros(32, 16, device=card)
+    e = torch.zeros(128, dtype=torch.long, device=card)
+    m = torch.ones(128, device=card)
+    counts = (gru_ops.gru_pair.launches, bip_ops.bipartite_round.launches,
+              wf_ops.masked_rowmin.launches, wf_ops.waterfill_event.launches)
+    with pytest.raises(RuntimeError, match="plain=True"):
+        dispatch.gru_cell_pair(p["gru1"], p["gruA"], x, h, xl, hl)
+    with pytest.raises(RuntimeError, match="plain=True"):
+        dispatch.gnn_rounds(p["gnn"], f, l, e, e, m, 32)
+    a = torch.ones(1, 8, 4, device=card)
+    cap = torch.ones(1, 4, device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="plain=True"):
+        dispatch.masked_rowmin(a, cap)
+    with pytest.raises(RuntimeError, match="plain=True"):
+        dispatch.waterfill_event(
+            dispatch.waterfill_incidence(a), cap,
+            torch.ones(1, 8, dtype=torch.bool, device=card), max_rounds=32)
+    # the plain keyword keeps the differentiated step off the kernels
+    fo, lo = dispatch.gru_cell_pair(p["gru1"], p["gruA"], x, h, xl, hl,
+                                    plain=True)
+    gf, gl = dispatch.gnn_rounds(p["gnn"], f, l, e, e, m, 32, plain=True)
+    (fo.sum() + lo.sum() + gf.sum() + gl.sum()).backward()
+    assert x.grad is not None and f.grad is not None
+    assert counts == (gru_ops.gru_pair.launches,
+                      bip_ops.bipartite_round.launches,
+                      wf_ops.masked_rowmin.launches,
+                      wf_ops.waterfill_event.launches)
+
+
+def test_training_on_the_card_matches_the_cpu(card):
+    """One per-sim update of `fit` at the gate scale on both devices from
+    the same state: the losses at rtol 1e-4, and the parameters by the rule
+    of tests/test_torch_training.py. AdamW's first step is about
+    lr * sign(g) per element, so where the gradient is well determined
+    (|g| above 1e-3 of its leaf's max; g read from the first moment,
+    m = 0.1 g) the updates agree at rtol 1e-3, and anywhere they differ by
+    at most 2 lr. No kernel is launched."""
+    from repro_torch.core.events import build_event_batch
+    from repro_torch.train import TrainConfig, fit, init_state
+    cfg = M4Config(**GATE)
+    batch = build_event_batch(
+        get_backend("packet").run(SimRequest.from_scenario(
+            sample_scenario(0, num_flows=30))).raw, cfg, max_events=40)
+    tc = TrainConfig(epochs=1, lr=1e-3, shuffle=False)
+    n = (gru_ops.gru_pair.launches, bip_ops.bipartite_round.launches)
+    runs = [fit([batch], cfg, tc, state=init_state(cfg, 0, device="cpu"),
+                device=d, log=lambda *a: None) for d in (card, "cpu")]
+    assert n == (gru_ops.gru_pair.launches, bip_ops.bipartite_round.launches)
+    (gs, gh), (cs, ch) = runs
+    assert gs.step == cs.step == 1
+    for k in ("loss", "sldn", "size", "queue", "grad_norm"):
+        np.testing.assert_allclose(gh[0][k], ch[0][k], rtol=1e-4, err_msg=k)
+    p0 = init_state(cfg, 0, device="cpu").params
+    for (path, a), (_, b), (_, o), (_, m) in zip(
+            tree_leaves(gs.params), tree_leaves(cs.params),
+            tree_leaves(p0), tree_leaves(cs.opt["m"])):
+        d_gpu, d_cpu = (a.cpu() - o).numpy(), (b - o).numpy()
+        m = m.abs().numpy()
+        big = m > 1e-3 * m.max()
+        np.testing.assert_allclose(d_gpu[big], d_cpu[big], rtol=1e-3,
+                                   atol=0.0, err_msg=path)
+        assert np.abs(d_gpu - d_cpu).max() <= 2 * tc.lr * (1 + 1e-3), path
 
 
 @pytest.mark.parametrize("B,F,L", [

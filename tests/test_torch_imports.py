@@ -1,5 +1,7 @@
 """Import hygiene of the PyTorch port: `repro_torch` and `chip_smoke.py`
-import neither `jax` nor anything of the JAX package `repro`."""
+import neither `jax` nor anything of the JAX package `repro`, nor
+`msgpack` or `zstandard`, which the machine with the card lacks (the
+port's checkpoints and blob store use its own codec and zlib)."""
 import ast
 import os
 import subprocess
@@ -20,12 +22,19 @@ MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.sim.closedloop",
            "repro_torch.kernels.bipartite.ops",
            "repro_torch.kernels.waterfill.ops",
            "repro_torch.kernels.waterfill.ref", "repro_torch.weights",
-           "repro_torch.data.traffic", "repro_torch.net"]
+           "repro_torch.data.traffic", "repro_torch.net",
+           "repro_torch.net.packetsim", "repro_torch.core.events",
+           "repro_torch.core.training", "repro_torch.runtime.codec",
+           "repro_torch.runtime.blobstore", "repro_torch.runtime.checkpoint",
+           "repro_torch.runtime.guards", "repro_torch.optim",
+           "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+           "repro_torch.train", "repro_torch.train.batching",
+           "repro_torch.train.data", "repro_torch.train.loop"]
 
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack", "zstandard")
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

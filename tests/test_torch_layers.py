@@ -14,7 +14,7 @@ from repro_torch.core.model import M4Config, init_m4  # noqa: E402
 from repro_torch.nn import layers as tl  # noqa: E402
 from repro_torch.sim import get_backend  # noqa: E402
 from repro_torch.weights import (params_from_jax, params_to_numpy,  # noqa: E402
-                                 weights_digest)
+                                 tree_digest)
 
 TOL = 1e-5
 GATE = dict(hidden=16, gnn_dim=16, mlp_hidden=16, gnn_layers=2,
@@ -113,7 +113,7 @@ def test_fingerprint_names_package_weights_and_device():
     fp1 = get_backend("m4", params=p1, cfg=cfg, device="cpu").fingerprint()
     assert fp0.startswith("m4_torch-") and fp0.endswith("-ktorch")
     assert fp0 != fp1
-    assert weights_digest(p0) == weights_digest(init_m4(0, cfg))
+    assert tree_digest(p0) == tree_digest(init_m4(0, cfg))
 
 
 def test_backend_defaults_to_the_card_and_never_falls_back():
