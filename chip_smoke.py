@@ -44,13 +44,14 @@ Phases, each printing one JSON line:
                  and the first event where they differ);
 7. closed_loop — the §5.4 closed loop (per-rack inflight 3) on a 2-client-
                  rack backlog of 500 flows through run_closed_loop, for m4
-                 at full width and for flowsim_fast: every flow completes,
-                 and m4's launch counters read 2 GRU-pair launches and 1
-                 GNN launch per event;
+                 at full width, for flowsim_fast and for the packet DES
+                 (on the host): every flow completes, m4's launch
+                 counters read 2 GRU-pair launches and 1 GNN launch per
+                 event, the other two launch nothing;
 8. train       — m4's training path at full width: the packet DES on two
-                 Table-2 scenarios, cut from 2000 to TRAIN_FLOWS = 1000
-                 flows (K = 2000 events each) to keep the phase near three
-                 minutes, and their event tensors; `fit` per sim (one
+                 Table-2 scenario specs, cut from 2000 to TRAIN_FLOWS =
+                 1000 flows (K = 2000 events each) to keep the phase near
+                 three minutes, and their event tensors (build_dataset); `fit` per sim (one
                  epoch, two updates, the TrainConfig defaults) with
                  seconds per update, teacher-forced events/s, peak device
                  memory, each head's loss and the grad norm; one backward
@@ -61,13 +62,29 @@ Phases, each printing one JSON line:
                  card against the CPU (200 events); resume from a
                  checkpoint against an uninterrupted run, bitwise;
                  `evaluate_m4` of the trained weights on a held-out
-                 2000-flow scenario (packet ground truth, numpy flowSim,
-                 m4 `run` on the card). The GRU and GNN counters stay at 0
-                 through every differentiated step (they take the plain
-                 versions by the keyword plain=True) and read 2 and 1 per
-                 event in the evaluation's `run`.
+                 2000-flow scenario spec (packet ground truth, numpy
+                 flowSim, m4 on the card). The GRU and GNN counters stay
+                 at 0 through every differentiated step (they take the
+                 plain versions by the keyword plain=True) and read 2 and
+                 1 per event in the evaluation;
+9. sweep       — the sweep engine and the one-call pipeline: smoke16 at
+                 SWEEP_FLOWS = 200 (16 specs of 200-260 flows, four
+                 topologies and four workload families) through
+                 SweepRunner at chunk 8 for m4 (full width) and
+                 flowsim_fast: 2 chunks padded to B = 8, launch counters
+                 (2 GRU-pair and 1 GNN, or 1 water-filling, per batched
+                 event), a re-run all hits, bitwise, with no launch, two
+                 specs of each chunk against the CPU, and a profile of one
+                 B = 8 chunk (smoke16 at its own 30-58 flows); then `python -m
+                 repro_torch.train` in-process at paper width (2 Table-2
+                 sims and 2 Table-3 eval specs of CLI_FLOWS = 500 flows,
+                 one epoch), run twice: the second a finished resume with
+                 the same weights hash, all dataset and ground-truth
+                 hits, and only the evaluation's m4 launching kernels.
 
-Then the `kernels` line, the card's nvidia-smi line, and last
+Then the `kernels` line (each kernel's launches on the full-size `run`,
+in the train phase's evaluation and in the sweeps), the card's
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits nonzero and prints no result; so it does with no CUDA device, or
 when run outside the repository. Imports nothing of JAX.
@@ -93,6 +110,8 @@ GRU_TOL = 1e-5
 GNN_TOL = 1e-4
 FCT_RTOL = 1e-4
 TRAIN_FLOWS = 1000     # flows of the train phase's sims (see phase_train)
+SWEEP_FLOWS = 200      # smoke16's base flow count in the sweep phase
+CLI_FLOWS = 500        # flows of the training CLI's sims (sweep phase)
 
 
 def emit(phase, **kw):
@@ -567,32 +586,36 @@ def phase_full(torch, np, name, backend, req, reqs, want_per_event, smi):
 
 
 def phase_profile(torch, name, backend, req, smi, events_per_s=None):
-    """Where the time goes: one run under the profiler. With the
-    events/s of the same run unprofiled, also the busy share it implies
-    (device time per event x events/s), free of the profiler's own host
-    cost."""
+    """Where the time goes: one run under the profiler (`req`, or a list
+    of requests for one padded `run_many`, whose events are batched
+    events). With the events/s of the same run unprofiled, also the busy
+    share it implies (device time per event x events/s), free of the
+    profiler's own host cost."""
+    reqs = req if isinstance(req, list) else [req]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        backend.run(req)
+        backend.run_many(reqs) if isinstance(req, list) else backend.run(req)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kernels)
-    events = 2 * req.num_flows
+    events = 2 * max(r.num_flows for r in reqs)
     top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)[:8]
     ours = {}
     for e in kernels:
         for k in PORT_KERNELS:
             if k in e.name:
                 ours[k] = ours.get(k, 0.0) + e.device_time_total / events
-    emit("profile", path=name, flows=req.num_flows, events=events,
+    emit("profile", path=name, flows=[r.num_flows for r in reqs],
+         scenarios=len(reqs), events=events,
          wall_s=wall,
          cuda_kernels_per_event=len(kernels) / events if kernels else None,
          device_busy_share=(busy_us * 1e-6 / wall) if kernels else None,
+         events_per_s_unprofiled=events_per_s,
          device_busy_share_unprofiled=(busy_us * 1e-6 / events * events_per_s
                                        if events_per_s else None),
          device_us_per_event=busy_us / events,
@@ -653,11 +676,12 @@ def phase_cpu_flowsim_fast(torch, np, req, run_res, dev):
 
 
 def phase_closed_loop(torch, np, m4, fs, cfg, smi):
-    """The §5.4 closed loop through run_closed_loop, for m4 and for
-    flowsim_fast (whose session is the numpy FlowSimSession)."""
+    """The §5.4 closed loop through run_closed_loop, for m4, for
+    flowsim_fast (whose session is the numpy FlowSimSession) and for the
+    packet DES (PacketSession, on the host)."""
     from repro_torch.core.closedloop import make_backlog
     from repro_torch.net import FatTree, NetConfig
-    from repro_torch.sim import run_closed_loop
+    from repro_torch.sim import get_backend, run_closed_loop
 
     topo = FatTree(8, 4, 2)
     backlog = make_backlog(topo, client_racks=2, flows_per_rack=250,
@@ -666,7 +690,8 @@ def phase_closed_loop(torch, np, m4, fs, cfg, smi):
     events = 2 * n
     for name, backend, want in (
             ("m4", m4, launches(2 * events, events)),
-            ("flowsim_fast", fs, launches())):
+            ("flowsim_fast", fs, launches()),
+            ("packet", get_backend("packet"), launches())):
         res, counts, wall = run_counted(torch, lambda: run_closed_loop(
             backend, topo, NetConfig(), backlog, 3))
         ct = res.completion_times
@@ -712,17 +737,15 @@ def check_update(torch, name, got, want, p0, lr):
 
 
 def phase_train(torch, np, cfg, dev, smi):
-    """m4's training path on the card: DES -> EventBatch -> fit (per sim,
-    batch) -> checkpoints and resume -> evaluate_m4. Returns the
-    evaluation's launch counts."""
+    """m4's training path on the card: DES -> EventBatch (build_dataset
+    over scenario specs) -> fit (per sim, batch) -> checkpoints and resume
+    -> evaluate_m4 over a spec. Returns the evaluation's launch counts."""
     import dataclasses
     import tempfile
-    from repro_torch.core.events import build_event_batch
     from repro_torch.core.training import combined_loss
-    from repro_torch.data.traffic import sample_scenario
-    from repro_torch.sim import SimRequest, get_backend
-    from repro_torch.train import (TrainConfig, evaluate_m4, fit,
-                                   init_state, load_state)
+    from repro_torch.scenarios import random_spec
+    from repro_torch.train import (TrainConfig, build_dataset, evaluate_m4,
+                                   fit, init_state, load_state)
     from repro_torch.weights import tree_digest, tree_leaves, tree_map
 
     def log(*a):
@@ -739,21 +762,16 @@ def phase_train(torch, np, cfg, dev, smi):
 
     # ---- ground truth: the packet DES on two Table-2 scenarios, cut from
     # 2000 to TRAIN_FLOWS flows to keep the phase near three minutes (a
-    # full-width update costs ~14-19 ms per event on the host)
+    # full-width update costs ~14-19 ms per event on the host), through
+    # the dataset store
     cut_flows = f"num_flows 2000 -> {TRAIN_FLOWS}"
-    t0 = time.perf_counter()
-    reqs = [SimRequest.from_scenario(sample_scenario(s,
-                                                     num_flows=TRAIN_FLOWS))
-            for s in (0, 1)]
-    traces = [get_backend("packet").run(r).raw for r in reqs]
-    des_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    batches = [build_event_batch(tr, cfg) for tr in traces]
-    build_s = time.perf_counter() - t0
-    line(step="ground_truth", flows=[r.num_flows for r in reqs],
+    specs = [random_spec(s, num_flows=TRAIN_FLOWS) for s in (0, 1)]
+    with tempfile.TemporaryDirectory() as store:
+        batches, report = build_dataset(specs, cfg, store, log=log)
+    line(step="ground_truth", flows=[s.num_flows for s in specs],
          events=[b.num_events for b in batches],
-         links=[b.num_links for b in batches], des_s=des_s,
-         build_event_batch_s=build_s, cut=cut_flows)
+         links=[b.num_links for b in batches], build_dataset_s=report.wall_s,
+         misses=report.misses, cut=cut_flows)
 
     def fit_counted(name, bs, tc, **extra):
         torch.cuda.empty_cache()
@@ -787,7 +805,7 @@ def phase_train(torch, np, cfg, dev, smi):
     del state
 
     # ---- gradient coverage: one backward on the card, sim 0 cut to 200
-    one = [build_event_batch(traces[0], cfg, max_events=200)]
+    one = [batches[0].head(200)]
     k = one[0].num_events
     b0 = {n: torch.from_numpy(v).to(dev) for n, v in
           one[0].to_arrays().items()}
@@ -814,8 +832,8 @@ def phase_train(torch, np, cfg, dev, smi):
     # alone, forward + backward, then that under the profiler (whose
     # trace takes ~0.5 s per event to read back)
     k = 40
-    b0 = {n: torch.from_numpy(v).to(dev) for n, v in build_event_batch(
-        traces[0], cfg, max_events=k).to_arrays().items()}
+    b0 = {n: torch.from_numpy(v).to(dev) for n, v in batches[0].head(
+        k).to_arrays().items()}
 
     def forward():
         combined_loss(leaves, cfg, b0)
@@ -842,7 +860,7 @@ def phase_train(torch, np, cfg, dev, smi):
     del leaves, b0
 
     # ---- batch mode: one bucket of both sims, cut to 1000 events
-    cut = [build_event_batch(tr, cfg, max_events=1000) for tr in traces]
+    cut = [b.head(1000) for b in batches]
     fit_counted("fit_batch", cut, TrainConfig(epochs=1, step_mode="batch"),
                 cut=f"{cut_flows}, max_events=1000")
 
@@ -866,7 +884,7 @@ def phase_train(torch, np, cfg, dev, smi):
 
     # ---- checkpoint and resume: 1 epoch, then 2, against 2 in one go
     # (constant LR: the warmup-cosine schedule spans the configured epochs)
-    cut200 = [build_event_batch(tr, cfg, max_events=200) for tr in traces]
+    cut200 = [b.head(200) for b in batches]
     with tempfile.TemporaryDirectory() as tmp:
         tc = TrainConfig(epochs=2, schedule="const",
                          ckpt_dir=os.path.join(tmp, "resumed"))
@@ -892,21 +910,188 @@ def phase_train(torch, np, cfg, dev, smi):
     del resumed, full, restored
 
     # ---- evaluation of the trained weights on a held-out scenario
-    ereq = SimRequest.from_scenario(sample_scenario(2))
+    espec = random_spec(2)
     report, counts, wall = run_counted(torch, lambda: evaluate_m4(
-        trained, cfg, [ereq], device=dev))
-    events = 2 * ereq.num_flows
+        trained, cfg, [espec], device=dev))
+    events = 2 * espec.num_flows
     if counts != launches(2 * events, events):
         raise AssertionError(f"evaluate_m4: launches {counts}, expected "
                              f"{launches(2 * events, events)}")
     if not (np.isfinite(report["m4_err_mean"])
             and np.isfinite(report["flowsim_err_mean"])):
         raise AssertionError(f"evaluate_m4: errors not finite {report}")
-    line(step="evaluate_m4", flows=ereq.num_flows, events=events,
+    line(step="evaluate_m4", flows=espec.num_flows, events=events,
          m4_err_mean=report["m4_err_mean"],
          flowsim_err_mean=report["flowsim_err_mean"], wall_s=wall,
          launches=counts, card=smi)
     return counts
+
+
+def phase_sweep(torch, np, m4, fs, params, cfg, smi):
+    """The sweep engine and the one-call pipeline on the card: smoke16
+    (16 specs, four topologies and four workload families, 200-260
+    flows) through SweepRunner at chunk 8 for m4 and flowsim_fast, with
+    the launch counters, a cached re-run, and two specs of each chunk
+    against the CPU; then `python -m repro_torch.train` in-process at
+    paper width, twice (the second a finished resume). Returns the
+    sweeps' launch counts."""
+    import contextlib
+    import tempfile
+    from repro_torch.scenarios import SweepRunner, get_suite
+    from repro_torch.sim import get_backend
+    from repro_torch.train.__main__ import main as train_main
+    from repro_torch.weights import params_to
+
+    t_phase = time.perf_counter()
+    sweep = get_suite("smoke16", num_flows=SWEEP_FLOWS)
+    reqs = [spec.to_request() for spec in sweep]
+    # SweepRunner -> run_chunked sorts by footprint: here by flow count,
+    # so the chunks are specs 0-7 and 8-15, each padded to its largest
+    chunks = [reqs[:8], reqs[8:]]
+    batched = sum(2 * max(r.num_flows for r in c) for c in chunks)
+    scenario_events = sum(2 * r.num_flows for r in reqs)
+    total = launches()
+    with tempfile.TemporaryDirectory() as cache:
+        for name, backend, per_event, cpu in (
+                ("m4", m4, launches(2, 1), get_backend(
+                    "m4", params=params_to(params, "cpu"), cfg=cfg,
+                    device="cpu")),
+                ("flowsim_fast", fs, launches(event=1),
+                 get_backend("flowsim_fast", device="cpu"))):
+            runner = SweepRunner(backend, cache_dir=cache, chunk_size=8)
+            rep, counts, wall = run_counted(torch, lambda: runner.run(sweep))
+            want = {k: v * batched for k, v in per_event.items()}
+            if counts != want or rep.misses != 16:
+                raise AssertionError(f"sweep {name}: launches {counts}, "
+                                     f"expected {want}; misses "
+                                     f"{rep.misses}")
+            check_fcts(np, [e.result for e in rep.entries], reqs)
+            for k, v in counts.items():
+                total[k] += v
+            again, re_counts, re_wall = run_counted(
+                torch, lambda: runner.run(sweep))
+            # the cache keeps float64 (of m4's float32, exactly)
+            same = all(np.asarray(a.result.fcts, np.float64).tobytes()
+                       == np.asarray(b.result.fcts, np.float64).tobytes()
+                       for a, b in zip(again.entries, rep.entries))
+            if again.hits != 16 or not same or re_counts != launches():
+                raise AssertionError(f"sweep {name} re-run: hits "
+                                     f"{again.hits}, bitwise {same}, "
+                                     f"launches {re_counts}")
+            # one spec of each family and of each topology, two from each
+            # chunk, against the CPU. m4's clock is float32 and an FCT the
+            # difference of two of its readings: completion times are held
+            # at rtol 1e-4, FCTs at rtol 1e-4 up to one float32 ulp of the
+            # completion time (which can exceed 1e-4 of a short FCT)
+            pick = [0, 5, 10, 15]
+            t0 = time.perf_counter()
+            ref = cpu.run_chunked([reqs[i] for i in pick], 8)
+            cpu_s = time.perf_counter() - t0
+            got = np.concatenate([rep.entries[i].result.fcts for i in pick])
+            want_f = np.concatenate([r.fcts for r in ref])
+            arr = np.concatenate([[f.t_arrival for f in reqs[i].flows]
+                                  for i in pick])
+            rel = np.abs(got - want_f) / np.abs(want_f)
+            done_rel = np.abs(got - want_f) / np.abs(arr + want_f)
+            ulp = np.spacing((arr + want_f).astype(np.float32)).astype(
+                np.float64)
+            if name == "flowsim_fast":
+                ok = got.tobytes() == want_f.tobytes()
+            else:
+                ok = bool((done_rel <= FCT_RTOL).all() and (
+                    np.abs(got - want_f) <= FCT_RTOL * np.abs(want_f)
+                    + ulp).all())
+            if not ok:
+                raise AssertionError(f"sweep {name}: card and CPU differ "
+                                     f"(max rel FCT {rel.max()}, max rel "
+                                     f"completion time {done_rel.max()})")
+            emit("sweep", path=name, suite="smoke16", specs=len(reqs),
+                 flows=[r.num_flows for r in reqs], chunk_size=8, chunks=2,
+                 topologies=4, workloads=4, wall_s=wall,
+                 simulate_s=rep.simulate_s, batched_events=batched,
+                 batched_events_per_s=batched / rep.simulate_s,
+                 scenario_events_per_s=scenario_events / rep.simulate_s,
+                 launches=counts, rerun_hits=again.hits,
+                 rerun_bitwise=same, rerun_wall_s=re_wall,
+                 rerun_launches=re_counts, cpu_specs=pick, cpu_s=cpu_s,
+                 cpu_max_rel_fct_diff=float(rel.max()),
+                 cpu_max_rel_completion_diff=float(done_rel.max()),
+                 cpu_fcts_beyond_rtol=int((rel > FCT_RTOL).sum()),
+                 cpu_bitwise_equal=bool(got.tobytes() == want_f.tobytes()),
+                 rtol=0.0 if name == "flowsim_fast" else FCT_RTOL, card=smi)
+            # where the time goes at B = 8: the first chunk of smoke16 at
+            # its own 30-58 flows (at 200 flows the trace's read-back took
+            # ~30 s), timed once unprofiled for the busy share of the same
+            # requests
+            small = [s.to_request() for s in get_suite("smoke16")][:8]
+            t0 = time.perf_counter()
+            backend.run_many(small)
+            torch.cuda.synchronize()
+            rate = (2 * max(r.num_flows for r in small)
+                    / (time.perf_counter() - t0))
+            phase_profile(torch, f"{name}_sweep_chunk", backend, small, smi,
+                          rate)
+
+    # ---- the training CLI in-process, twice; its stdout goes to stderr
+    with tempfile.TemporaryDirectory() as work:
+        argv = ["--workdir", work, "--hidden", "400", "--gnn-dim", "300",
+                "--mlp-hidden", "200", "--snap-flows", "64",
+                "--snap-links", "128", "--suite", "table2_train_space",
+                "--n", "2", "--num-flows", str(CLI_FLOWS), "--epochs", "1",
+                "--eval-suite", "table3_empirical", "--eval-n", "2",
+                "--eval-flows", str(CLI_FLOWS)]
+        cache = os.path.join(work, "sweep_cache")
+        eval_events = 2 * CLI_FLOWS
+        logs, entries = [], None
+        for run in ("first", "resume"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with contextlib.redirect_stdout(sys.stderr):
+                rc, counts, wall = run_counted(torch,
+                                               lambda: train_main(argv))
+            with open(os.path.join(work, "train_log.json")) as f:
+                tlog = json.load(f)
+            cached = sorted(os.path.relpath(os.path.join(d, n), cache)
+                            for d, _, ns in os.walk(cache) for n in ns)
+            want = launches(2 * eval_events, eval_events)
+            if rc != 0 or counts != want:
+                raise AssertionError(f"train CLI {run}: rc {rc}, launches "
+                                     f"{counts}, expected {want} (m4's "
+                                     "eval only)")
+            ev = tlog["eval"]
+            if not (np.isfinite(ev["m4_err_mean"])
+                    and np.isfinite(ev["flowsim_err_mean"])):
+                raise AssertionError(f"train CLI {run}: eval {ev}")
+            epochs = tlog["train"]["epochs"]
+            emit("sweep", path="train_cli", run=run, wall_s=wall,
+                 updates=tlog["train"]["updates"],
+                 step_s=tlog["train"]["step_s"],
+                 s_per_update=tlog["train"]["step_s"] / max(
+                     tlog["train"]["updates"], 1),
+                 epochs_trained_this_run=len(epochs) if run == "first"
+                 else 0, dataset_hits=tlog["dataset"]["hits"],
+                 dataset_misses=tlog["dataset"]["misses"],
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 m4_err_mean=ev["m4_err_mean"],
+                 flowsim_err_mean=ev["flowsim_err_mean"],
+                 weights_hash=tlog["weights_hash"][:16],
+                 sweep_cache_entries=len(cached), launches=counts,
+                 flows=CLI_FLOWS, card=smi)
+            logs.append(tlog)
+            if entries is None:
+                entries = cached
+        first, again = logs
+        if again["weights_hash"] != first["weights_hash"] or \
+                (again["dataset"]["hits"], again["dataset"]["misses"]) != \
+                (2, 0) or cached != entries or \
+                again["train"]["epochs"] != first["train"]["epochs"]:
+            raise AssertionError("train CLI re-run: not a finished resume "
+                                 f"(hashes {first['weights_hash'][:12]} / "
+                                 f"{again['weights_hash'][:12]}, dataset "
+                                 f"{again['dataset']}, sweep cache "
+                                 f"{len(entries)} -> {len(cached)})")
+    emit("sweep", step="phase", seconds=time.perf_counter() - t_phase)
+    return total
 
 
 def main() -> int:
@@ -987,6 +1172,8 @@ def main() -> int:
     eval_launches = phase_train(torch, np, cfg, dev, smi)
     emit("train", step="phase", seconds=time.perf_counter() - t0)
 
+    sweep_launches = phase_sweep(torch, np, m4, fs, params, cfg, smi)
+
     sources = {"fused_gru_pair": ("src/repro_torch/kernels/csrc/fused_gru.cu",
                                   "src/repro/kernels/fused_gru/kernel.py:21"),
                "bipartite_round": ("src/repro_torch/kernels/csrc/bipartite.cu",
@@ -1000,7 +1187,8 @@ def main() -> int:
         src, replaces = sources[name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": run_launches[name],
-                     "train_eval_launches": eval_launches[name], **e})
+                     "train_eval_launches": eval_launches[name],
+                     "sweep_launches": sweep_launches[name], **e})
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

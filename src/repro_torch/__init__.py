@@ -4,8 +4,9 @@ for Hopper (`sm_90a`).
 The package mirrors the layout of the JAX package `repro`, which stays the
 reference it is held against, but imports nothing of it (nor `jax`):
 
-    repro_torch.net        FatTree, NetConfig, Flow
-    repro_torch.data       the Table-2 traffic generator
+    repro_torch.net        FatTree, NetConfig, Flow, the packet DES
+    repro_torch.data       the Table-2 traffic generator and the workload
+                           families
     repro_torch.nn         linear / mlp / gru_cell on (d_in, d_out) weights
     repro_torch.kernels    the fused GRU pair, the bipartite GraphSAGE round
                            and flowSim's water-filling (an event's rounds
@@ -14,7 +15,13 @@ reference it is held against, but imports nothing of it (nor `jax`):
     repro_torch.core       M4Config, the model, m4's open and closed loops,
                            flowSim (numpy) and flowsim_fast, make_backlog
     repro_torch.sim        SimRequest / SimResult, the backend registry
-                           (flowsim, flowsim_fast, m4), run_closed_loop
+                           (packet, flowsim, flowsim_fast, m4),
+                           run_closed_loop
+    repro_torch.scenarios  scenario specs, named suites, SweepRunner
+                           (python -m repro_torch.scenarios)
+    repro_torch.train      dataset store, fit, evaluate_m4, train_suite
+                           (python -m repro_torch.train)
+    repro_torch.runtime    checkpoints, blob store, zstd reader, guards
     repro_torch.weights    the bridge from a JAX parameter tree
 
 Entry points:

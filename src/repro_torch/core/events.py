@@ -9,6 +9,7 @@ on-disk contract.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,6 +62,14 @@ class EventBatch:
         """(N, L, K) sort key used by the training shape-bucketer
         (`repro_torch.train.batching.make_buckets`)."""
         return (self.num_flows, self.num_links, self.num_events)
+
+    def head(self, k: int) -> "EventBatch":
+        """The first k events: the per-event arrays (the fields from `t`
+        on) cut, the per-flow and per-link ones kept. This is what
+        `build_event_batch(trace, cfg, max_events=k)` builds."""
+        names = [f.name for f in dataclasses.fields(self)]
+        return dataclasses.replace(self, **{
+            n: getattr(self, n)[:k] for n in names[names.index("t"):]})
 
     # -------------------------------------------------- serialization
     # The on-disk contract of the training dataset store

@@ -1,11 +1,14 @@
 """Traffic/scenario generator — the paper's Table 2 parameter space.
 
-A copy of the `table2` part of `repro.data.traffic`: synthetic flow-size
-distributions (Pareto/Exp/Gaussian/Lognormal with scale θ ∈ [5K, 50K]),
-the empirical Meta-style CDFs, lognormal inter-arrivals with burstiness
-σ ∈ {1, 2}, rack-to-rack traffic matrices A/B/C and max-link-load
-targeting. The numpy rng is consumed in the same order as the JAX
-package's generator, so one seed gives the same flows in both packages.
+A copy of `repro.data.traffic`: synthetic flow-size distributions
+(Pareto/Exp/Gaussian/Lognormal with scale θ ∈ [5K, 50K]), the empirical
+Meta-style CDFs, lognormal inter-arrivals with burstiness σ ∈ {1, 2},
+rack-to-rack traffic matrices A/B/C and max-link-load targeting; and,
+beyond the paper's Table-2 workload, the flow-pattern families of
+`WORKLOADS` ("incast" fan-in bursts, shifted-"permutation" and
+"all_to_all" collective patterns) and the "mixed" empirical size
+distribution. The numpy rng is consumed in the same order as the JAX
+package's generators, so one seed gives the same flows in both packages.
 """
 from __future__ import annotations
 
@@ -118,11 +121,12 @@ def sample_point(rng, synthetic: bool = True) -> Dict[str, object]:
 
 @dataclass
 class Scenario:
-    """One materialized point of the Table-2 space.
+    """One materialized point of the Table-2 space (+ workload family).
 
-    Only the paper's "table2" workload (matrix-driven src/dst, §5.1) is
-    here; the incast, permutation and all_to_all families stay with the
-    JAX package for now.
+    `workload` selects the flow-pattern generator from `WORKLOADS`:
+    "table2" is the paper's matrix-driven pattern (§5.1); "incast",
+    "permutation" and "all_to_all" are beyond-paper collective/storage
+    patterns (synchronized bursts, §2.2).
     """
     topo: FatTree
     config: NetConfig
@@ -134,16 +138,19 @@ class Scenario:
     num_flows: int = 2000
     seed: int = 0
     workload: str = "table2"
+    fan_in: int = 16              # incast: senders per burst
+    participants: int = 8         # permutation / all_to_all ranks
 
     def generate(self) -> List[Flow]:
         """Deterministically materialize the flow list (fixed `seed` ->
         identical flows, across calls, processes and packages)."""
-        if self.workload != "table2":
+        if self.workload not in WORKLOADS:
             raise ValueError(f"unknown workload {self.workload!r}; "
-                             "available: ['table2']")
+                             f"available: {sorted(WORKLOADS)}")
         rng = np.random.default_rng(self.seed)
-        return self._gen_table2(rng)
+        return WORKLOADS[self.workload](self, rng)
 
+    # ------------------------------------------------- workload families
     def _gen_table2(self, rng) -> List[Flow]:
         """The paper's workload: matrix-driven src/dst, sampled sizes,
         lognormal inter-arrivals scaled to hit `max_load` (§5.1)."""
@@ -178,6 +185,98 @@ class Scenario:
                      size=int(sizes[i]), t_arrival=float(t_arr[i]),
                      path=paths[i])
                 for i in range(self.num_flows)]
+
+
+    def _gen_incast(self, rng) -> List[Flow]:
+        """Fan-in bursts: waves of `fan_in` senders all firing at one
+        aggregator host at the same instant (partition/aggregate storage
+        pattern). Wave gaps are lognormal and scaled so the aggregator's
+        downlink carries `max_load` on average."""
+        topo, n = self.topo, self.num_flows
+        fan = max(1, min(self.fan_in, topo.num_hosts - 1))
+        sizes = sample_sizes(rng, self.size_dist, n, self.theta)
+        agg = int(rng.integers(topo.num_hosts))
+        others = np.array([h for h in range(topo.num_hosts) if h != agg])
+        cap = float(topo.capacity[topo.down_host(agg)])
+        flows: List[Flow] = []
+        t, fid = 0.0, 0
+        while fid < n:
+            k = min(fan, n - fid)
+            senders = rng.choice(others, size=k, replace=False)
+            wave_bits = float(sizes[fid:fid + k].sum()) * 8.0
+            for s in senders:
+                flows.append(Flow(fid=fid, src=int(s), dst=agg,
+                                  size=int(sizes[fid]), t_arrival=t,
+                                  path=topo.path(int(s), agg, fid)))
+                fid += 1
+            gap = wave_bits / (self.max_load * cap)
+            t += float(rng.lognormal(
+                np.log(max(gap, 1e-9)) - self.sigma ** 2 / 2, self.sigma))
+        return flows
+
+    def _gen_permutation(self, rng) -> List[Flow]:
+        """Rounds of a shifted permutation over `participants` hosts:
+        round r picks a random cyclic shift j >= 1 and host i sends one
+        flow to host (i+j) mod m — the per-step pattern of ring
+        collectives (`examples/simulate_collectives.py`)."""
+        topo, n = self.topo, self.num_flows
+        m = max(2, min(self.participants, topo.num_hosts))
+        hosts = np.linspace(0, topo.num_hosts - 1, m).astype(int)
+        sizes = sample_sizes(rng, self.size_dist, n, self.theta)
+        cap = float(topo.capacity.max())
+        flows: List[Flow] = []
+        t, fid = 0.0, 0
+        while fid < n:
+            shift = int(rng.integers(1, m))
+            k = min(m, n - fid)
+            round_sizes = sizes[fid:fid + k]
+            for i in range(k):
+                s, d = int(hosts[i]), int(hosts[(i + shift) % m])
+                flows.append(Flow(fid=fid, src=s, dst=d,
+                                  size=int(round_sizes[i]), t_arrival=t,
+                                  path=topo.path(s, d, fid)))
+                fid += 1
+            gap = float(round_sizes.max()) * 8.0 / (self.max_load * cap)
+            t += float(rng.lognormal(
+                np.log(max(gap, 1e-9)) - self.sigma ** 2 / 2, self.sigma))
+        return flows
+
+    def _gen_all_to_all(self, rng) -> List[Flow]:
+        """Rounds of a full exchange: every ordered pair of `participants`
+        hosts moves one equal chunk of `theta` bytes, all released at the
+        round start (the all-to-all phase of expert/sequence parallelism).
+        Round gaps target `max_load` on the busiest uplink, which carries
+        (m-1) chunks per round."""
+        topo, n = self.topo, self.num_flows
+        m = max(2, min(self.participants, topo.num_hosts))
+        hosts = np.linspace(0, topo.num_hosts - 1, m).astype(int)
+        chunk = int(np.clip(self.theta, *SIZE_BOUNDS))
+        cap = float(topo.capacity.max())
+        flows: List[Flow] = []
+        t, fid = 0.0, 0
+        while fid < n:
+            for i in range(m):
+                for j in range(m):
+                    if i == j or fid >= n:
+                        continue
+                    s, d = int(hosts[i]), int(hosts[j])
+                    flows.append(Flow(fid=fid, src=s, dst=d, size=chunk,
+                                      t_arrival=t, path=topo.path(s, d, fid)))
+                    fid += 1
+            gap = (m - 1) * chunk * 8.0 / (self.max_load * cap)
+            t += float(rng.lognormal(
+                np.log(max(gap, 1e-9)) - self.sigma ** 2 / 2, self.sigma))
+        return flows
+
+
+# workload name -> generator (bound methods of Scenario); the scenarios
+# sweep layer exposes these as the `ScenarioSpec.workload` axis
+WORKLOADS = {
+    "table2": Scenario._gen_table2,
+    "incast": Scenario._gen_incast,
+    "permutation": Scenario._gen_permutation,
+    "all_to_all": Scenario._gen_all_to_all,
+}
 
 
 def sample_scenario(seed: int, *, num_flows: int = 2000,

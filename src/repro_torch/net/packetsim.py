@@ -95,9 +95,9 @@ class PacketSim:
         """Advance the event loop until one flow completes.
 
         Returns (t_done, fid), or (None, None) once the heap drains. This is
-        the incremental interface of a closed-loop packet session (the JAX
-        package's `PacketSession`): the driver injects follow-up arrivals
-        between calls.
+        the incremental interface of the closed-loop packet session
+        (`repro_torch.sim.closedloop.PacketSession`): `run_closed_loop`
+        injects follow-up arrivals between calls.
         """
         self._completed_now = None
         while self.events:

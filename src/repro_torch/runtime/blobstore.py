@@ -8,9 +8,10 @@ plus the sha256 of the compressed body, verified on every read), atomic
 writes (unique tempfile + rename) and quarantine of a corrupt entry
 (renamed to `<path>.corrupt`, read as a miss). Payloads go through the
 port's own msgpack codec (`runtime.codec`), which writes the same bytes as
-the `msgpack` package, and compress with zlib: the port has no
-`zstandard`, and a zstd blob (which the JAX package writes where
-`zstandard` is installed) raises an error that names it. Subclasses
+the `msgpack` package, and compress with zlib, as the JAX package does
+where `zstandard` is not installed. A zstd blob, which the JAX package
+writes where `zstandard` is installed, reads through the port's own
+decoder (`runtime.zstd`), never the `zstandard` package. Subclasses
 define only the payload codec (`_encode`/`_decode`).
 """
 from __future__ import annotations
@@ -23,10 +24,10 @@ import zlib
 from typing import Optional
 
 from .codec import packb, unpackb
+from .zstd import ZSTD_MAGIC
+from .zstd import decompress as zstd_decompress
 
 logger = logging.getLogger("repro_torch.blobstore")
-
-_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
 # integrity envelope: magic + sha256(compressed body) + compressed body.
 # A file without the magic is corrupt: quarantined, read as a miss.
@@ -40,9 +41,9 @@ def _compress(raw: bytes) -> bytes:
 
 
 def _decompress(comp: bytes) -> bytes:
-    if comp[:4] == _ZSTD_MAGIC:
-        raise IOError("blob is zstd-compressed (magic 28 b5 2f fd), which "
-                      "the port cannot read: it has no zstandard")
+    """zstd (sniffed by its magic) or zlib; malformed input raises."""
+    if comp[:4] == ZSTD_MAGIC:
+        return zstd_decompress(comp)
     return zlib.decompress(comp)
 
 

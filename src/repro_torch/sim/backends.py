@@ -11,6 +11,7 @@ of the JAX package. Four simulators are registered:
     backend = get_backend("m4", params=params, cfg=cfg)   # device="cuda"
     backend.run(req)          # one scenario
     backend.run_many(reqs)    # one padded batch of arenas
+    backend.run_chunked(reqs, 8)   # footprint-sorted chunks of run_many
     run_closed_loop(backend, topo, config, backlog, inflight)
 
 `flowsim_fast` and `m4` take `device`, which defaults to "cuda": they
@@ -67,8 +68,32 @@ class Backend:
     def run_many(self, requests: Sequence[SimRequest]) -> List[SimResult]:
         return [self.run(r) for r in requests]
 
+    def run_chunked(self, requests: Sequence[SimRequest],
+                    chunk_size: int = None) -> List[SimResult]:
+        """Partition `requests` into shape-compatible chunks and
+        `run_many` each: sorted by arena footprint (flow count, then link
+        count) so each chunk pads to near-uniform shapes. Results come
+        back in input order; `chunk_size=None` runs one chunk. This is
+        what `repro_torch.scenarios.SweepRunner` dispatches through."""
+        requests = list(requests)
+        if chunk_size is None or chunk_size >= len(requests):
+            return self.run_many(requests)
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        order = sorted(range(len(requests)),
+                       key=lambda i: (requests[i].num_flows,
+                                      requests[i].topo.num_links))
+        out: List[SimResult] = [None] * len(requests)
+        for lo in range(0, len(order), chunk_size):
+            chunk = order[lo:lo + chunk_size]
+            for i, res in zip(chunk, self.run_many([requests[i]
+                                                    for i in chunk])):
+                out[i] = res
+        return out
+
     def fingerprint(self) -> str:
-        """Identity string for result caching."""
+        """Identity string for result caching: two backends with the same
+        fingerprint must produce identical results for the same request."""
         return self.name
 
     def closed_loop(self, topo, config, flows):
@@ -102,8 +127,8 @@ def _result(name, r) -> SimResult:
 @register_backend("packet")
 class PacketBackend(Backend):
     """The reduced packet-level DES (the ns-3 stand-in): ground truth. A
-    host-side event loop by nature, it takes no device; it has no
-    closed-loop session yet (`PacketSession` is not ported)."""
+    host-side event loop by nature, it takes no device, and so does its
+    closed-loop session (`PacketSession`)."""
 
     name = "packet"
 
@@ -128,6 +153,10 @@ class PacketBackend(Backend):
                       event_queues=tuple(tuple(e.path_queues) for e in ev))
         return SimResult(fcts=fcts, slowdowns=sldn, wall_time=wall,
                          backend=self.name, raw=trace, **kw)
+
+    def closed_loop(self, topo, config, flows):
+        from .closedloop import PacketSession
+        return PacketSession(topo, config, flows)
 
 
 @register_backend("flowsim")

@@ -1,7 +1,6 @@
 """Closed-loop (dynamic-arrival) execution behind one session protocol.
 
-A copy of `repro.sim.closedloop` without its packet session. The paper's
-§5.4 application — per-rack inflight limits where each completion
+A copy of `repro.sim.closedloop`. The paper's §5.4 application — per-rack inflight limits where each completion
 releases the next request — needs a simulator that consumes arrivals as
 they are decided. Every capable backend opens a `ClosedLoopSession`:
 
@@ -13,10 +12,11 @@ they are decided. Every capable backend opens a `ClosedLoopSession`:
 and `run_closed_loop` handles the backlog/release logic once for all:
 
     from repro_torch.sim import get_backend, run_closed_loop
-    res = run_closed_loop(get_backend("flowsim"), topo, config, backlog, 3)
+    res = run_closed_loop(get_backend("packet"), topo, config, backlog, 3)
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import List, Optional, Protocol, Tuple
 
@@ -73,6 +73,38 @@ def run_closed_loop(backend, topo, config, backlog: List[list],
     ct = session.completion_times()
     mk = float(np.nanmax(ct))
     return ClosedLoopResult(ct, mk, np.isfinite(ct).sum() / mk)
+
+
+class PacketSession:
+    """Ground truth: the incremental DES advanced completion by
+    completion. It runs on the host and launches nothing."""
+
+    def __init__(self, topo, config, flows, seed: int = 0):
+        from ..net.packetsim import PacketSim
+        self.flows = copy.deepcopy(list(flows))
+        for f in self.flows:
+            f.t_arrival = 0.0
+        self.sim = PacketSim(topo, config, seed=seed)
+        self.sim.flows = self.flows
+        self._pending = None
+
+    def inject_arrival(self, fid: int, t: float):
+        self.flows[fid].t_arrival = t
+        self.sim._push(t, "arrival", fid)
+
+    def next_departure(self):
+        """Advance the event heap until the next flow completes."""
+        if self._pending is None:
+            self._pending = self.sim.run_until_completion()
+        return self._pending
+
+    def commit_departure(self, fid: int, t: float):
+        # the DES already committed it while advancing; just consume it
+        assert self._pending is not None and self._pending[1] == fid
+        self._pending = None
+
+    def completion_times(self):
+        return np.array([f.t_done if f.done else np.nan for f in self.flows])
 
 
 class FlowSimSession:

@@ -20,13 +20,17 @@ The port of `repro.train.loop`:
   and one history entry per epoch with the JAX package's keys
   (`compile_s` and `compiles` are 0: eager PyTorch compiles nothing).
 - **Evaluation.** `evaluate_m4` reports the per-flow slowdown error of
-  m4 and of flowSim against the packet ground truth (§5.2).
+  m4 and of a baseline (flowSim) against the packet ground truth (§5.2),
+  over scenario specs, with the ground truth cached by the sweep runner.
+- **One call.** `train_suite` runs suite -> cached dataset -> `fit` ->
+  held-out eval, as `python -m repro_torch.train` does.
 
 Parameters, moments and batches live on the device the caller names,
 "cuda" by default as for the backends; there is no fallback to the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -45,6 +49,7 @@ from ..runtime import checkpoint as ckpt
 from ..runtime.guards import check_finite
 from ..sim.backends import resolve_device
 from ..weights import tree_digest, tree_map
+from . import prng
 from .batching import make_buckets
 
 
@@ -53,7 +58,7 @@ def prng_key(seed: int) -> np.ndarray:
     [0, 2**32): uint32 [0, seed]. It seeds nothing in the port (the port's
     weights come from `init_m4`'s torch generator); it is kept so that a
     `TrainState` tree matches the JAX package's leaf for leaf, and it
-    seeds the bucket order of `shuffle`."""
+    seeds the bucket order of `shuffle` as in the JAX package."""
     if not 0 <= seed < 2 ** 32:
         raise ValueError(f"seed must lie in [0, 2**32), got {seed}")
     return np.array([0, seed], dtype=np.uint32)
@@ -247,11 +252,10 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
     and returns immediately. `state` (on any device) warm-starts a run
     whose `ckpt_dir` holds no checkpoint.
 
-    With `tc.shuffle`, each epoch's bucket order is a permutation from a
-    numpy generator seeded by the state's key and the absolute epoch, so
-    a resumed run replays it. The JAX package draws it from
-    `jax.random.permutation`, which the port cannot reproduce: runs held
-    against the JAX package use `shuffle=False`.
+    With `tc.shuffle`, each epoch's bucket order is the JAX package's:
+    `permutation(fold_in(rng, epoch), buckets)` of the state's key, by
+    the *absolute* epoch, so a resumed run replays it (`train.prng`, a
+    numpy twin of jax's threefry draw).
     """
     batches = list(batches)
     if not batches:
@@ -301,8 +305,7 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
         order = np.arange(len(buckets), dtype=np.int64)
         if tc.shuffle:
             # by *absolute* epoch, so a resumed run replays the same walk
-            order = np.random.default_rng(
-                [int(x) for x in rng] + [ep]).permutation(len(buckets))
+            order = prng.permutation(prng.fold_in(rng, ep), len(buckets))
         outs_all, weights = [], []
         step_s = 0.0
         for bi in order:
@@ -342,33 +345,100 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
 
 
 # ---------------------------------------------------------------- evaluation
-def evaluate_m4(params, m4cfg: M4Config, requests: Sequence, *,
+def evaluate_m4(params, m4cfg: M4Config, specs: Sequence, *,
+                cache_dir: Optional[str] = None, request_seed: int = 0,
+                chunk_size: int = 8, baseline: str = "flowsim",
                 device="cuda") -> dict:
     """Held-out eval through the port's registry: per-flow slowdown error
-    of m4 (`run` of each request on `device`) and of numpy flowSim (the
-    baseline) against the `packet` ground truth (the paper's headline
-    metric, §5.2). The keys are the JAX package's."""
+    of m4 vs the packet ground truth, against the `baseline` backend (the
+    paper's headline metric, §5.2). The keys are the JAX package's.
+
+    Ground truth and the baseline go through `SweepRunner`, so a
+    `cache_dir` makes repeated evals (every resume) pay the packet DES
+    once; m4 runs uncached through `run_chunked` on `device`, because its
+    params change between calls."""
+    from ..scenarios import SweepRunner
     from ..sim import get_backend
-    packet, base = get_backend("packet"), get_backend("flowsim")
+    specs = list(specs)
+    base_kw = {"device": device} if baseline == "flowsim_fast" else {}
+    gt_rep = SweepRunner(get_backend("packet"), cache_dir=cache_dir,
+                         chunk_size=chunk_size).run(specs,
+                                                    seed=request_seed)
+    base_rep = SweepRunner(get_backend(baseline, **base_kw),
+                           cache_dir=cache_dir,
+                           chunk_size=chunk_size).run(specs,
+                                                      seed=request_seed)
     m4 = get_backend("m4", params=params, cfg=m4cfg, device=device)
+    m4_res = m4.run_chunked([s.to_request(seed=request_seed) for s in specs],
+                            chunk_size)
 
     def err(res, gt):
         return float(np.nanmean(np.abs(res.slowdowns - gt) / gt))
 
     rows = []
-    for i, req in enumerate(requests):
-        gt = packet.run(req).slowdowns
-        rows.append({"scenario": i, "m4_err": err(m4.run(req), gt),
-                     "flowsim_err": err(base.run(req), gt)})
+    for spec, g, b, m in zip(specs, gt_rep.entries, base_rep.entries, m4_res):
+        gt = g.result.slowdowns
+        rows.append({"scenario": spec.label,
+                     "m4_err": err(m, gt),
+                     f"{baseline}_err": err(b.result, gt)})
     m4_err = float(np.mean([r["m4_err"] for r in rows]))
-    base_err = float(np.mean([r["flowsim_err"] for r in rows]))
-    return {"m4_err_mean": m4_err, "flowsim_err_mean": base_err,
-            "baseline": "flowsim", "m4_beats_baseline": m4_err < base_err,
+    base_err = float(np.mean([r[f"{baseline}_err"] for r in rows]))
+    return {"m4_err_mean": m4_err, f"{baseline}_err_mean": base_err,
+            "baseline": baseline, "m4_beats_baseline": m4_err < base_err,
             "rows": rows}
 
 
+# ------------------------------------------------------------- one-call API
+def train_suite(suite, m4cfg: M4Config, tc: TrainConfig = TrainConfig(), *,
+                data_root: str, workers: int = 0,
+                max_events: Optional[int] = None,
+                eval_specs: Optional[Sequence] = None,
+                eval_cache_dir: Optional[str] = None,
+                device="cuda", log=print) -> Tuple[TrainState, dict]:
+    """Suite -> cached dataset -> fit -> (optional) held-out eval, on
+    `device`.
+
+    The one-call pipeline of the CLI (`python -m repro_torch.train`).
+    Returns (TrainState, report) where `report` has the JAX package's
+    keys but two: `obs` (the port has no obs layer yet) and
+    `train.compiles` (eager PyTorch compiles nothing to count)."""
+    from .data import build_dataset
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    specs = list(suite)
+    batches, data_report = build_dataset(specs, m4cfg, data_root,
+                                         max_events=max_events,
+                                         workers=workers, log=log)
+    state, history = fit(batches, m4cfg, tc, device=device, log=log)
+    report = {
+        "suite": getattr(suite, "name", "corpus"),
+        "num_sims": len(specs),
+        "model": dataclasses.asdict(m4cfg),
+        "train_config": dataclasses.asdict(tc),
+        "dataset": {"key": data_report.corpus_key,
+                    "hits": data_report.hits, "misses": data_report.misses,
+                    "root": data_root},
+        "train": {"epochs": history, "updates": state.step,
+                  "compile_s": round(sum(e.get("compile_s", 0.0)
+                                         for e in history), 3),
+                  "step_s": round(sum(e.get("step_s", 0.0)
+                                      for e in history), 3)},
+        "weights_hash": state.weights_hash(),
+    }
+    if eval_specs:
+        report["eval"] = evaluate_m4(state.params, m4cfg, eval_specs,
+                                     cache_dir=eval_cache_dir,
+                                     device=device)
+        e = report["eval"]
+        log(f"[train] held-out eval: m4 err {e['m4_err_mean']:.3f} vs "
+            f"{e['baseline']} {e[e['baseline'] + '_err_mean']:.3f} "
+            f"({'beats' if e['m4_beats_baseline'] else 'LOSES TO'} baseline)")
+    report["wall_s"] = round(time.perf_counter() - t0, 2)
+    return state, report
+
+
 def write_train_log(report: dict, path: str = "results/train_log.json"):
-    """Persist a training report as JSON (the JAX package's
+    """Persist the `train_suite` report as JSON (the JAX package's
     `write_train_log`)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:

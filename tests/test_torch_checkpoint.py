@@ -11,13 +11,15 @@ package's `msgpack`-based ones:
   `tree_digest` equals the JAX package's on a params/opt/rng tree;
 - a corrupt newest step rolls back to the newest that loads;
 - a dataset shard written by either store is the same file and reads in
-  the other; a zstd blob raises an error that names zstd.
+  the other; a zstd checkpoint of the JAX package restores in the port
+  bitwise, and a malformed zstd blob is a quarantined miss.
 
 The port compresses with zlib, as the JAX package does where `zstandard`
 is not installed (as on the machine with the card). Where it is installed
-the JAX package writes zstd, so the tests that hold the JAX package's
-files against the port's run it without `zstandard` (`jax_writes_zlib`);
-a zstd checkpoint from it must fail in the port with an error naming zstd.
+the JAX package writes zstd, which the port reads with its own decoder
+(`runtime/zstd.py`; tests/test_torch_zstd.py holds it against
+`zstandard`). The tests that compare the two packages' file bytes run the
+JAX package without `zstandard` (`jax_writes_zlib`).
 """
 import hashlib
 import os
@@ -202,17 +204,27 @@ def test_dataset_shard_is_the_same_file_in_both_stores(jax_writes_zlib,
 
 
 def test_zstd_checkpoint_raises_naming_zstd(jax_tree, tmp_path):
+    """Once a refusal, now a read: the JAX package's zstd checkpoint
+    (`zstandard` is installed here) restores in the port bitwise, through
+    the port's own decoder."""
     pytest.importorskip("zstandard")
     d = str(tmp_path / "ck")
     jck.save(d, 1, jax_tree)             # zstd: zstandard is installed
-    like = _port_tree(jax_tree)
-    with pytest.raises(IOError, match="zstd"):
-        tck.restore(d, like)
-    with pytest.raises(FileNotFoundError, match="zstd"):
-        tck.restore_latest_loadable(d, like)
+    with open(os.path.join(d, "step_0000000001", "state.msgpack.zst"),
+              "rb") as f:
+        assert f.read(4) == b"\x28\xb5\x2f\xfd"
+    like = _port_tree(jax_init_state(JaxM4Config(**TINY), seed=0).tree())
+    got, step = tck.restore(d, like)
+    assert step == 1
+    _assert_trees_bitwise(got, jax_tree)
+    got, step, skipped = tck.restore_latest_loadable(d, like)
+    assert (step, skipped) == (1, [])
+    _assert_trees_bitwise(got, jax_tree)
 
 
 def test_zstd_blob_raises_naming_zstd(tmp_path):
+    """A malformed zstd body raises an IOError naming zstd, and in the
+    store it is a quarantined miss; a well-formed one reads."""
     with pytest.raises(IOError, match="zstd"):
         blobstore._decompress(b"\x28\xb5\x2f\xfd" + b"\x00" * 8)
     store = DatasetStore(str(tmp_path))
@@ -226,6 +238,10 @@ def test_zstd_blob_raises_naming_zstd(tmp_path):
         blobstore._decompress(body)
     assert store.get("cd" * 32) is None          # a miss, quarantined
     assert os.path.exists(path + ".corrupt") and not os.path.exists(path)
+    zstandard = pytest.importorskip("zstandard")
+    raw = codec.packb({"a": 1})
+    assert blobstore._decompress(
+        zstandard.ZstdCompressor(level=3).compress(raw)) == raw
 
 
 def test_blob_without_envelope_is_a_quarantined_miss(tmp_path):

@@ -373,3 +373,36 @@ def test_m4_closed_loop_on_the_card_matches_the_cpu(card):
     assert np.isfinite(res[0].completion_times).all()
     np.testing.assert_allclose(res[0].completion_times,
                                res[1].completion_times, rtol=1e-4)
+
+
+def test_run_chunked_of_mixed_topologies_matches_the_cpu(card):
+    """One chunk of 8 smoke16 specs (four topologies, two workload
+    families) padded into one batch on the card: m4 against the CPU at
+    rtol 1e-4 (on FCTs up to one float32 ulp of the completion time, the
+    resolution of m4's clock), flowsim_fast bitwise, one launch per
+    batched event."""
+    from repro_torch.scenarios import get_suite
+    specs = list(get_suite("smoke16"))[:8]
+    reqs = [s.to_request() for s in specs]
+    assert len({(r.topo.num_racks, r.topo.hosts_per_rack) for r in reqs}) == 4
+    events = 2 * max(r.num_flows for r in reqs)
+    cfg = M4Config(**GATE)
+    params = init_m4(0, cfg)
+    n_gru, n_gnn = gru_ops.gru_pair.launches, bip_ops.bipartite_round.launches
+    gpu = get_backend("m4", params=params, cfg=cfg).run_chunked(reqs, 8)
+    assert gru_ops.gru_pair.launches == n_gru + 2 * events
+    assert bip_ops.bipartite_round.launches == n_gnn + events
+    cpu = get_backend("m4", params=params, cfg=cfg,
+                      device="cpu").run_chunked(reqs, 8)
+    for a, b, r in zip(gpu, cpu, reqs):
+        assert np.isfinite(a.fcts).all() and (a.fcts > 0).all()
+        done = np.array([f.t_arrival for f in r.flows]) + b.fcts
+        ulp = np.spacing(done.astype(np.float32)).astype(np.float64)
+        assert (np.abs(a.fcts - b.fcts) <= 1e-4 * b.fcts + ulp).all()
+        np.testing.assert_allclose(a.fcts + done - b.fcts, done, rtol=1e-4)
+    n_event = wf_ops.waterfill_event.launches
+    gpu = get_backend("flowsim_fast").run_chunked(reqs, 8)
+    assert wf_ops.waterfill_event.launches == n_event + events
+    cpu = get_backend("flowsim_fast", device="cpu").run_chunked(reqs, 8)
+    for a, b in zip(gpu, cpu):
+        assert a.fcts.tobytes() == b.fcts.tobytes()

@@ -80,6 +80,17 @@ def test_event_batch_equals_jax_bitwise(traces, seed, layout, max_events):
     assert tb.rem_mask.sum() > 0 and tb.queue_mask.sum() > 0
 
 
+@pytest.mark.parametrize("k", [1, 17, 32])
+def test_head_equals_a_build_cut_to_k_events(traces, k):
+    _, got, _ = traces[1]
+    whole = build_event_batch(got.raw, M4Config(**TINY))
+    cut = build_event_batch(got.raw, M4Config(**TINY), max_events=k)
+    a, b = whole.head(k).to_arrays(), cut.to_arrays()
+    assert list(a) == list(b)
+    for n in b:
+        assert a[n].shape == b[n].shape and a[n].tobytes() == b[n].tobytes(), n
+
+
 def test_arrays_round_trip_between_packages(traces):
     _, got, _ = traces[0]
     tb = build_event_batch(got.raw, M4Config(**TINY), max_events=32)

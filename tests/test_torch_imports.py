@@ -1,7 +1,9 @@
 """Import hygiene of the PyTorch port: `repro_torch` and `chip_smoke.py`
 import neither `jax` nor anything of the JAX package `repro`, nor
 `msgpack` or `zstandard`, which the machine with the card lacks (the
-port's checkpoints and blob store use its own codec and zlib)."""
+port's checkpoints and blob store use its own codec, zlib and its own
+zstd decoder). The sweep engine, the training pipeline and both CLIs'
+modules are among those imported."""
 import ast
 import os
 import subprocess
@@ -29,7 +31,12 @@ MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.sim.closedloop",
            "repro_torch.runtime.guards", "repro_torch.optim",
            "repro_torch.optim.adamw", "repro_torch.optim.schedules",
            "repro_torch.train", "repro_torch.train.batching",
-           "repro_torch.train.data", "repro_torch.train.loop"]
+           "repro_torch.train.data", "repro_torch.train.loop",
+           "repro_torch.train.prng", "repro_torch.train.__main__",
+           "repro_torch.runtime.zstd", "repro_torch.scenarios",
+           "repro_torch.scenarios.spec", "repro_torch.scenarios.suites",
+           "repro_torch.scenarios.cache", "repro_torch.scenarios.runner",
+           "repro_torch.scenarios.__main__"]
 
 
 def _forbidden(name: str) -> bool:

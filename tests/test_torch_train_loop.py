@@ -1,8 +1,9 @@
 """The port's trainer (`repro_torch.train`) on the CPU, against the JAX
 package's `repro.train` where both run the same corpus:
 
-- the dataset store: a request's shard key equals JAX's `shard_key`, and a
-  rebuild is all hits with the same bytes;
+- the dataset store over scenario specs: a spec's shard key equals JAX's
+  `shard_key` (with the packet seed `request_seed`), and a rebuild is all
+  hits with the same bytes;
 - bucketing is deterministic and bounded, batch mode makes one update per
   bucket (tests/test_train.py:134, 173);
 - `fit` in per-sim mode with `shuffle=False`, 2 epochs on 4 sims from
@@ -13,7 +14,11 @@ package's `repro.train` where both run the same corpus:
   checkpoint (tests/test_train.py:229, 378);
 - the trained weights' hash moves the m4 backend's fingerprint and equals
   JAX's `tree_digest` of the same weights (tests/test_train.py:256);
-- `evaluate_m4` reports finite errors against the packet ground truth.
+- `evaluate_m4` over specs reports finite errors against the packet
+  ground truth, and with a `cache_dir` a second evaluation serves the
+  ground truth and the baseline from the sweep cache; with
+  `baseline="flowsim_fast"` (which the port runs on `device`) its errors
+  equal JAX's at rtol 1e-4.
 """
 import dataclasses
 import os
@@ -27,17 +32,16 @@ jax = pytest.importorskip("jax")
 
 from repro.core.events import EventBatch as JaxEventBatch  # noqa: E402
 from repro.core.model import M4Config as JaxM4Config  # noqa: E402
-from repro.net import packetsim as jps  # noqa: E402
-from repro.net.topology import FatTree as JaxFatTree  # noqa: E402
 from repro.runtime.checkpoint import tree_digest as jax_digest  # noqa: E402
-from repro.sim import SimRequest as JaxRequest  # noqa: E402
+from repro.scenarios import random_spec as jax_random_spec  # noqa: E402
 from repro.train import TrainConfig as JaxTrainConfig  # noqa: E402
+from repro.train import evaluate_m4 as jax_evaluate_m4  # noqa: E402
 from repro.train import fit as jax_fit  # noqa: E402
 from repro.train import init_state as jax_init_state  # noqa: E402
 from repro.train import shard_key as jax_shard_key  # noqa: E402
 from repro_torch.core.model import M4Config  # noqa: E402
-from repro_torch.data.traffic import sample_scenario  # noqa: E402
-from repro_torch.sim import SimRequest, get_backend  # noqa: E402
+from repro_torch.scenarios import random_spec  # noqa: E402
+from repro_torch.sim import get_backend  # noqa: E402
 from repro_torch.train import (TrainConfig, TrainState,  # noqa: E402
                                build_dataset, dataset_key, evaluate_m4, fit,
                                init_state, load_state, make_buckets,
@@ -56,39 +60,19 @@ def quiet(*_):
     pass
 
 
-def _requests():
-    return [SimRequest.from_scenario(sample_scenario(seed, num_flows=n),
-                                     seed=seed)
-            for seed, n in ((0, 12), (1, 14), (2, 16), (3, 20))]
+SIMS = ((0, 12), (1, 14), (2, 16), (3, 20))     # (seed, flows)
+
+
+def _specs():
+    return [random_spec(seed, num_flows=n) for seed, n in SIMS]
 
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("store"))
-    reqs = _requests()
-    batches, report = build_dataset(reqs, CFG, root, max_events=MAX_EVENTS)
-    return reqs, batches, report, root
-
-
-def _jax_request(req):
-    t = req.topo
-    return JaxRequest(
-        topo=JaxFatTree(t.num_racks, t.hosts_per_rack, t.num_spines,
-                        t.link_gbps, t.prop_delay_s, t.oversub),
-        config=jps.NetConfig(**dataclasses.asdict(req.config)),
-        flows=tuple(jps.Flow(f.fid, f.src, f.dst, f.size, f.t_arrival,
-                             list(f.path)) for f in req.flows),
-        seed=req.seed)
-
-
-class _Spec:
-    """What JAX's `shard_key` reads of a scenario spec."""
-
-    def __init__(self, req):
-        self.req = req
-
-    def to_request(self, seed=0):
-        return _jax_request(dataclasses.replace(self.req, seed=seed))
+    specs = _specs()
+    batches, report = build_dataset(specs, CFG, root, max_events=MAX_EVENTS)
+    return specs, batches, report, root
 
 
 def _state_from_jax(seed=0) -> TrainState:
@@ -108,28 +92,33 @@ def _assert_params_bitwise(a, b):
 
 # ------------------------------------------------------------ dataset store
 def test_shard_key_equals_jax(corpus):
-    reqs, _, _, _ = corpus
-    for req in reqs:
+    specs, _, _, _ = corpus
+    for spec, (seed, n) in zip(specs, SIMS):
         for max_events in (None, MAX_EVENTS):
-            assert shard_key(req, CFG, max_events=max_events) == \
-                jax_shard_key(_Spec(req), JaxM4Config(**TINY),
-                              max_events=max_events,
-                              request_seed=req.seed)
-    k0 = shard_key(reqs[0], CFG, max_events=MAX_EVENTS)
-    assert k0 != shard_key(reqs[0], CFG, max_events=MAX_EVENTS + 1)
-    assert k0 != shard_key(dataclasses.replace(reqs[0], seed=9), CFG,
+            for request_seed in (0, seed):
+                assert shard_key(spec, CFG, max_events=max_events,
+                                 request_seed=request_seed) == \
+                    jax_shard_key(jax_random_spec(seed, num_flows=n),
+                                  JaxM4Config(**TINY), max_events=max_events,
+                                  request_seed=request_seed)
+    k0 = shard_key(specs[0], CFG, max_events=MAX_EVENTS)
+    assert k0 != shard_key(specs[0], CFG, max_events=MAX_EVENTS + 1)
+    assert k0 != shard_key(specs[0], CFG, max_events=MAX_EVENTS,
+                           request_seed=9)
+    assert k0 == shard_key(specs[0], dataclasses.replace(CFG, gnn_dim=32),
                            max_events=MAX_EVENTS)
-    assert k0 == shard_key(reqs[0], dataclasses.replace(CFG, gnn_dim=32),
+    # the key is the request's: a renamed spec shares its shard
+    assert k0 == shard_key(dataclasses.replace(specs[0], name="other"), CFG,
                            max_events=MAX_EVENTS)
 
 
 def test_dataset_rebuild_is_all_hits(corpus):
-    reqs, batches, report, root = corpus
+    specs, batches, report, root = corpus
     assert (report.hits, report.misses) == (0, 4)
-    again, report2 = build_dataset(reqs, CFG, root, max_events=MAX_EVENTS)
+    again, report2 = build_dataset(specs, CFG, root, max_events=MAX_EVENTS)
     assert (report2.hits, report2.misses) == (4, 0)
     assert report2.hit_rate == 1.0
-    assert report2.corpus_key == dataset_key(reqs[::-1], CFG,
+    assert report2.corpus_key == dataset_key(specs[::-1], CFG,
                                              max_events=MAX_EVENTS)
     for a, b in zip(batches, again):
         for k, v in a.to_arrays().items():
@@ -260,11 +249,37 @@ def test_weights_hash_threads_into_backend_fingerprint(corpus, tmp_path):
     assert state.weights_hash() == jax_digest(params_to_numpy(state.params))
 
 
-def test_evaluate_m4_against_packet_ground_truth(corpus):
-    reqs, _, _, _ = corpus
+def test_evaluate_m4_against_packet_ground_truth(corpus, tmp_path):
+    specs, _, _, _ = corpus
     params = init_state(CFG, seed=0, device="cpu").params
-    report = evaluate_m4(params, CFG, reqs[:2], device="cpu")
+    cache = str(tmp_path / "cache")
+    report = evaluate_m4(params, CFG, specs[:2], cache_dir=cache,
+                         device="cpu")
     assert report["baseline"] == "flowsim"
-    assert len(report["rows"]) == 2
+    assert [r["scenario"] for r in report["rows"]] == \
+        [s.label for s in specs[:2]]
     for k in ("m4_err_mean", "flowsim_err_mean"):
         assert np.isfinite(report[k]) and report[k] >= 0
+    # the second evaluation reads the ground truth and baseline back
+    again = evaluate_m4(params, CFG, specs[:2], cache_dir=cache,
+                        device="cpu")
+    assert again == report
+    assert len(os.listdir(cache)) == 4       # 2 packet + 2 flowsim entries
+
+
+def test_evaluate_m4_with_flowsim_fast_baseline_matches_jax(corpus):
+    specs, _, _, _ = corpus
+    state = _state_from_jax(0)
+    report = evaluate_m4(state.params, CFG, specs[:2],
+                         baseline="flowsim_fast", device="cpu")
+    jparams = jax_init_state(JaxM4Config(**TINY), 0).params
+    jspecs = [jax_random_spec(seed, num_flows=n) for seed, n in SIMS[:2]]
+    want = jax_evaluate_m4(jparams, JaxM4Config(**TINY), jspecs,
+                           baseline="flowsim_fast")
+    assert report["baseline"] == want["baseline"] == "flowsim_fast"
+    assert [r["scenario"] for r in report["rows"]] == \
+        [r["scenario"] for r in want["rows"]]
+    for k in ("m4_err", "flowsim_fast_err"):
+        np.testing.assert_allclose([r[k] for r in report["rows"]],
+                                   [r[k] for r in want["rows"]],
+                                   rtol=HIST_RTOL, err_msg=k)
