@@ -41,14 +41,33 @@ Phases, each printing one JSON line:
                  scenario, FCTs at rtol 1e-4 (for flowsim_fast also a
                  recording run on the card, counted: its per-event
                  records (fid, kind, rounds, capped) against the CPU's,
-                 and the first event where they differ);
+                 and the first event where they differ); both CPU runs
+                 also record probes, for phase 8;
 7. closed_loop — the §5.4 closed loop (per-rack inflight 3) on a 2-client-
                  rack backlog of 500 flows through run_closed_loop, for m4
                  at full width, for flowsim_fast and for the packet DES
                  (on the host): every flow completes, m4's launch
                  counters read 2 GRU-pair launches and 1 GNN launch per
                  event, the other two launch nothing;
-8. train       — m4's training path at full width: the packet DES on two
+8. probes      — the probed paths at full width, each a request with
+                 ProbeConfig(stride 4, ring 256): m4's `run` of the full
+                 phase's 2000-flow scenario (FCTs bitwise as unprobed, 2
+                 GRU-pair and 1 GNN launch per event, the ring wrapped:
+                 the last 256 of 1000 samples, in order, valid and
+                 finite; events/s against the unprobed `run` just before
+                 it); `run_many` of four scenarios of 200-500 flows, each
+                 series trimmed to its flows and links and within rtol
+                 1e-5 of its own probed `run`; flowsim_fast's 2000-flow
+                 `run` (FCTs bitwise, water-filling launches = events +
+                 stride hits); the card's series against the CPU's of
+                 phase 6 (m4 at rtol 1e-4, flowsim_fast bitwise); then
+                 the divergence observatory, traced: `diff_sweep` of m4
+                 at full width against the packet DES over smoke16's
+                 first 8 specs with probes on both sides, run twice (the
+                 second's FCT passes all cache hits, so only its probed
+                 m4 pass launches), and `python -m repro_torch.obs
+                 --check` over the spans and the 16 probe files;
+9. train       — m4's training path at full width: the packet DES on two
                  Table-2 scenario specs, cut from 2000 to TRAIN_FLOWS =
                  1000 flows (K = 2000 events each) to keep the phase near
                  three minutes, and their event tensors (build_dataset); `fit` per sim (one
@@ -67,7 +86,7 @@ Phases, each printing one JSON line:
                  at 0 through every differentiated step (they take the
                  plain versions by the keyword plain=True) and read 2 and
                  1 per event in the evaluation;
-9. sweep       — the sweep engine and the one-call pipeline: smoke16 at
+10. sweep      — the sweep engine and the one-call pipeline: smoke16 at
                  SWEEP_FLOWS = 200 (16 specs of 200-260 flows, four
                  topologies and four workload families) through
                  SweepRunner at chunk 8 for m4 (full width) and
@@ -83,7 +102,7 @@ Phases, each printing one JSON line:
                  hits, and only the evaluation's m4 launching kernels.
 
 Then the `kernels` line (each kernel's launches on the full-size `run`,
-in the train phase's evaluation and in the sweeps), the card's
+on the probed `run`s, in the train phase's evaluation and in the sweeps), the card's
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits nonzero and prints no result; so it does with no CUDA device, or
@@ -112,6 +131,9 @@ FCT_RTOL = 1e-4
 TRAIN_FLOWS = 1000     # flows of the train phase's sims (see phase_train)
 SWEEP_FLOWS = 200      # smoke16's base flow count in the sweep phase
 CLI_FLOWS = 500        # flows of the training CLI's sims (sweep phase)
+PROBE_STRIDE = 4       # probes phase: a sample every 4 events ...
+PROBE_SAMPLES = 256    # ... into a ring of 256, which wraps at 2000 flows
+PROBE_RTOL = 1e-5      # a batched series against its scenario's own run
 
 
 def emit(phase, **kw):
@@ -635,26 +657,38 @@ def compare_fcts(np, name, gpu, cpu, flows, **extra):
                              f"{FCT_RTOL}: flow {first}, rel {rel[first]}")
 
 
-def phase_cpu_flowsim_fast(torch, np, req, run_res, dev):
+def phase_cpu_flowsim_fast(torch, np, req, run_res, dev, probes):
     """flowsim_fast's `run` on the card against the CPU on the same
     scenario; both runs record every event (the card's counted: one
     water-filling launch per event), which gives the water-filling rounds
     per event and the first event whose records (fid, kind, rounds,
-    capped) differ, if any."""
+    capped) differ, if any. The CPU's run also records `probes`, for the
+    probes phase; returns its series."""
     from repro_torch.core import flowsim_fast as ff
-    packed = [ff._pack(req.topo, list(req.flows))]
+    from repro_torch.core.probes import (FLOWSIM_CHANNELS, buffers_numpy,
+                                         normalize_probes)
+    probes = normalize_probes(probes, FLOWSIM_CHANNELS)
+    flows = list(req.flows)
+    packed = [ff._pack(req.topo, flows)]
     arr = np.array([f.t_arrival for f in req.flows])
 
-    def recorded(d):
+    def recorded(d, probes=None):
         t0 = time.perf_counter()
-        fct, log = ff._event_scan_core(*ff._to_device(packed, d),
-                                       record=True)
-        return (fct.cpu().numpy()[0] - arr,
-                {k: v.cpu().numpy()[0] for k, v in log.items()},
-                time.perf_counter() - t0)
+        out = ff._event_scan_core(*ff._to_device(packed, d), record=True,
+                                  probes=probes)
+        series = None
+        if probes is not None:
+            bufs = {k: v[0] for k, v in buffers_numpy(out[2]).items()}
+            series = ff._finalize_fs_series(
+                probes, bufs, req.topo, flows, num_flows=len(flows),
+                num_links=req.topo.num_links)
+        return (out[0].cpu().numpy()[0] - arr,
+                {k: v.cpu().numpy()[0] for k, v in out[1].items()},
+                time.perf_counter() - t0, series)
 
-    c_fct, c_log, c_wall = recorded("cpu")
-    (g_fct, g_log, _), counts, _ = run_counted(torch, lambda: recorded(dev))
+    c_fct, c_log, c_wall, c_series = recorded("cpu", probes)
+    (g_fct, g_log, _, _), counts, _ = run_counted(torch,
+                                                  lambda: recorded(dev))
     events = 2 * req.num_flows
     if counts != launches(event=events):
         raise AssertionError(f"flowsim_fast recorded run: launches {counts}, "
@@ -672,7 +706,9 @@ def phase_cpu_flowsim_fast(torch, np, req, run_res, dev):
         rounds_mean=float(rounds[rounds > 0].mean()),
         rounds_max=int(rounds.max()),
         events_capped_share=float(capped.mean()),
-        events_capped=int(capped.sum()), events=int(rounds.size))
+        events_capped=int(capped.sum()), events=int(rounds.size),
+        cpu_probes=f"stride {probes.stride}, ring {probes.max_samples}")
+    return c_series
 
 
 def phase_closed_loop(torch, np, m4, fs, cfg, smi):
@@ -707,6 +743,242 @@ def phase_closed_loop(torch, np, m4, fs, cfg, smi):
              events_per_s=events / wall, makespan_s=res.makespan,
              throughput_flows_per_s=res.throughput, launches=counts,
              card=smi)
+
+
+def series_close(np, name, got, want, rtol):
+    """A probe series against another: `ev` equal, `t` at rtol, each
+    channel at rtol relative to the value and to the channel's largest
+    magnitude (a channel holds exact zeros beside values of its scale).
+    Returns the largest relative difference over the channels."""
+    if got["ev"].tolist() != want["ev"].tolist():
+        raise AssertionError(f"{name}: sampled events differ")
+    if not np.allclose(got["t"], want["t"], rtol=rtol, atol=0.0):
+        raise AssertionError(f"{name}: sample times differ beyond {rtol}")
+    worst = 0.0
+    for ch, w in want["channels"].items():
+        g = got["channels"][ch]
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        if g.shape != w.shape or not np.allclose(g, w, rtol=rtol,
+                                                 atol=rtol * scale):
+            raise AssertionError(f"{name}: channel {ch} differs beyond "
+                                 f"rtol {rtol}")
+        if w.size:
+            worst = max(worst, float((np.abs(g - w)
+                                      / np.maximum(np.abs(w), 1e-30)).max()))
+    return worst
+
+
+def ring_bytes(series, batch=1):
+    """Device bytes of the ring buffers behind one series: t (float32) and
+    ev (int32) per slot, and one float32 per entity per channel."""
+    S = series["max_samples"]
+    dims = sum(v.shape[1] for v in series["channels"].values())
+    return batch * S * (4 + 4 + 4 * dims)
+
+
+def check_probed(np, name, series, events, probes, channels,
+                 batched_events=None):
+    """A probed run's series: the ring holds the last `max_samples` stride
+    hits in order, validates, and every value is finite. In a padded
+    batch of `batched_events`, a scenario's own events are its first
+    `events`; the samples of the rest are dropped."""
+    from repro_torch.obs import validate_series
+    hits = -(-events // probes.stride)
+    kept = list(range(0, batched_events or events, probes.stride))
+    kept = [k for k in kept[-probes.max_samples:] if k < events]
+    if series["ev"].tolist() != kept:
+        raise AssertionError(f"{name}: ring holds events "
+                             f"{series['ev'][:3]}..{series['ev'][-3:]}, "
+                             f"expected the last {len(kept)} of {hits} hits")
+    problems = validate_series(series)
+    if problems:
+        raise AssertionError(f"{name}: {problems}")
+    if tuple(series["channels"]) != channels:
+        raise AssertionError(f"{name}: channels {list(series['channels'])}")
+    for ch, v in series["channels"].items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{name}: channel {ch} not finite")
+    return hits
+
+
+def phase_probes(torch, np, m4, fs, base, smi):
+    """The probed paths at full width (ring-buffer probes of m4 and
+    flowsim_fast through SimRequest.probes), the card against the CPU's
+    probed runs of the cpu phase, and the divergence observatory: m4
+    against the packet DES over smoke16's first 8 specs with probes on
+    both sides, traced, then re-run from the cache. `base` holds the
+    unprobed results and rates of the full phase and the CPU series.
+    Returns the probed runs' launch counts."""
+    import contextlib
+    import dataclasses
+    import tempfile
+    from repro_torch.core.probes import (FLOWSIM_CHANNELS, M4_CHANNELS,
+                                         ProbeConfig)
+    from repro_torch.obs import configure, get_registry
+    from repro_torch.obs import diff as obs_diff
+    from repro_torch.obs.__main__ import main as obs_main
+    from repro_torch.scenarios import get_suite
+    from repro_torch.sim import get_backend
+
+    t_phase = time.perf_counter()
+    probes = ProbeConfig(stride=PROBE_STRIDE, max_samples=PROBE_SAMPLES)
+    total = launches()
+
+    # ---- m4 `run`, probed, against the full phase's unprobed `run`
+    req = dataclasses.replace(base["m4_req"], probes=probes)
+    events = 2 * req.num_flows
+    # the unprobed `run` again just before, for a rate taken back to back
+    _, _, un_wall = run_counted(torch, lambda: m4.run(base["m4_req"]))
+    (res,), counts, wall = run_counted(torch, lambda: [m4.run(req)])
+    if counts != launches(2 * events, events):
+        raise AssertionError(f"m4 probed run: launches {counts}")
+    if res.fcts.tobytes() != base["m4_res"].fcts.tobytes():
+        raise AssertionError("m4 probed run: FCTs differ from unprobed")
+    hits = check_probed(np, "m4 probed run", res.probes, events, probes,
+                        M4_CHANNELS)
+    for k, v in counts.items():
+        total[k] += v
+    emit("probes", path="m4", entry="run", flows=req.num_flows,
+         events=events, stride=probes.stride, hits=hits,
+         samples=len(res.probes["ev"]), last_ev=int(res.probes["ev"][-1]),
+         ring_bytes=ring_bytes(res.probes), wall_s=wall,
+         events_per_s=events / wall,
+         unprobed_events_per_s=events / un_wall,
+         probed_over_unprobed=un_wall / wall,
+         full_phase_unprobed_events_per_s=base["m4_rate"],
+         fcts_bitwise_unprobed=True, launches=counts, card=smi)
+
+    # ---- m4 `run_many`, probed: each series trimmed to its scenario and
+    # equal to that scenario's own probed `run`
+    reqs = [dataclasses.replace(r, probes=probes) for r in base["m4_many"]]
+    events = 2 * max(r.num_flows for r in reqs)
+    results, counts, wall = run_counted(torch, lambda: m4.run_many(reqs))
+    if counts != launches(2 * events, events):
+        raise AssertionError(f"m4 probed run_many: launches {counts}")
+    worst = 0.0
+    for r, got in zip(reqs, results):
+        s = got.probes
+        if s["channels"]["flow_remaining"].shape[1] != r.num_flows or \
+                s["channels"]["link_queue"].shape[1] != r.topo.num_links:
+            raise AssertionError("m4 probed run_many: series not trimmed "
+                                 "to its scenario")
+        check_probed(np, "m4 probed run_many", s, 2 * r.num_flows, probes,
+                     M4_CHANNELS, batched_events=events)
+        worst = max(worst, series_close(np, "m4 run_many vs run", s,
+                                        m4.run(r).probes, PROBE_RTOL))
+    emit("probes", path="m4", entry="run_many", scenarios=len(reqs),
+         flows=[r.num_flows for r in reqs],
+         links=[r.topo.num_links for r in reqs], events=events,
+         wall_s=wall, events_per_s=events / wall,
+         max_rel_diff_vs_own_run=worst, rtol=PROBE_RTOL, launches=counts,
+         card=smi)
+
+    # ---- flowsim_fast `run`, probed: one more water-filling per hit
+    req = dataclasses.replace(base["fs_req"], probes=probes)
+    events = 2 * req.num_flows
+    _, _, un_wall = run_counted(torch, lambda: fs.run(base["fs_req"]))
+    (res,), counts, wall = run_counted(torch, lambda: [fs.run(req)])
+    hits = check_probed(np, "flowsim_fast probed run", res.probes, events,
+                        probes, FLOWSIM_CHANNELS)
+    if counts != launches(event=events + hits):
+        raise AssertionError(f"flowsim_fast probed run: launches {counts}, "
+                             f"expected {events} + {hits}")
+    if res.fcts.tobytes() != base["fs_res"].fcts.tobytes():
+        raise AssertionError("flowsim_fast probed run: FCTs differ from "
+                             "unprobed")
+    for k, v in counts.items():
+        total[k] += v
+    fs_series = res.probes
+    emit("probes", path="flowsim_fast", entry="run", flows=req.num_flows,
+         events=events, stride=probes.stride, hits=hits,
+         samples=len(fs_series["ev"]), last_ev=int(fs_series["ev"][-1]),
+         ring_bytes=ring_bytes(fs_series), wall_s=wall,
+         events_per_s=events / wall,
+         unprobed_events_per_s=events / un_wall,
+         probed_over_unprobed=un_wall / wall,
+         full_phase_unprobed_events_per_s=base["fs_rate"],
+         waterfill_event_added_by_flow_rate=hits,
+         fcts_bitwise_unprobed=True, launches=counts, card=smi)
+
+    # ---- the card against the CPU's probed runs (made in the cpu phase)
+    gpu = m4.run(dataclasses.replace(base["cpu_req"], probes=probes))
+    m4_diff = series_close(np, "m4 probes card vs CPU", gpu.probes,
+                           base["m4_cpu_series"], FCT_RTOL)
+    cpu_fs = base["fs_cpu_series"]
+    fs_equal = all(fs_series[k].tobytes() == cpu_fs[k].tobytes()
+                   for k in ("t", "ev")) and all(
+        v.tobytes() == cpu_fs["channels"][ch].tobytes()
+        for ch, v in fs_series["channels"].items())
+    if not fs_equal:
+        raise AssertionError("flowsim_fast probes: card and CPU differ")
+    emit("probes", path="cpu", m4_flows=base["cpu_req"].num_flows,
+         m4_max_rel_diff=m4_diff, m4_rtol=FCT_RTOL,
+         flowsim_fast_flows=req.num_flows, flowsim_fast_bitwise=fs_equal)
+
+    # ---- the divergence observatory, traced, then from the cache
+    suite = get_suite("smoke16").limit(8)
+    flows = max(s.num_flows for s in suite)
+    batched = 2 * flows            # one chunk of 8: one padded batch
+    reg = get_registry()
+    hit_keys = [f'sweep.cache_hits{{backend="{b}"}}' for b in ("m4",
+                                                              "packet")]
+    with tempfile.TemporaryDirectory() as work:
+        trace_dir = os.path.join(work, "trace")
+        configure(trace_dir, proc="chip_smoke")
+        kw = dict(cache_dir=os.path.join(work, "cache"),
+                  probes=ProbeConfig(stride=4, max_samples=64),
+                  probes_dir=os.path.join(trace_dir, "probes"))
+        packet = get_backend("packet")
+        try:
+            rep, counts, wall = run_counted(torch, lambda: obs_diff.diff_sweep(
+                suite, m4, packet, **kw))
+            before = [reg.snapshot()["counters"].get(k, 0) for k in hit_keys]
+            again, re_counts, re_wall = run_counted(
+                torch, lambda: obs_diff.diff_sweep(suite, m4, packet, **kw))
+            after = [reg.snapshot()["counters"].get(k, 0) for k in hit_keys]
+        finally:
+            configure(None)
+            os.environ.pop("REPRO_TRACE_DIR", None)
+        # the first call runs m4's FCT pass and its probed pass; the
+        # second only the probed pass (probes bypass the cache)
+        if counts != launches(4 * batched, 2 * batched):
+            raise AssertionError(f"diff_sweep: launches {counts}")
+        if re_counts != launches(2 * batched, batched) or \
+                [a - b for a, b in zip(after, before)] != [8, 8]:
+            raise AssertionError(f"diff_sweep re-run: launches {re_counts}, "
+                                 f"cache hits {before} -> {after}")
+        if again["summary"] != rep["summary"]:
+            raise AssertionError("diff_sweep re-run: another summary")
+        for p in rep["profiles"]:
+            if set(p["probe_distance"]) != {"link_active",
+                                            "flow_remaining"} or not all(
+                    np.isfinite(v) for v in p["probe_distance"].values()):
+                raise AssertionError(f"diff_sweep: probe distance {p}")
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = obs_main(["--check", "--dir", trace_dir])
+        if rc != 0:
+            raise AssertionError("python -m repro_torch.obs --check failed")
+        n_probe_files = len(os.listdir(kw["probes_dir"]))
+    snap = reg.snapshot()
+
+    def entries(snapshot, prefixes):
+        out = {k: v for sec in ("counters", "gauges")
+               for k, v in snapshot[sec].items() if k.startswith(prefixes)}
+        for k, h in snapshot["histograms"].items():
+            if k.startswith(prefixes):
+                out[k] = {"count": h["count"], "sum": h["sum"]}
+        return out
+    emit("probes", path="diff", suite="smoke16", specs=len(suite),
+         flows=[s.num_flows for s in suite], backend="m4",
+         oracle="packet", batched_events=batched, wall_s=wall,
+         rerun_wall_s=re_wall, launches=counts, rerun_launches=re_counts,
+         rerun_cache_hits=[a - b for a, b in zip(after, before)],
+         summary=rep["summary"], families=rep["families"],
+         probe_files=n_probe_files, obs_check_rc=rc,
+         registry=entries(snap, ("sweep.", "phase.", "kernels.")),
+         diff=entries(rep["obs"], ("diff.",)), card=smi)
+    emit("probes", step="phase", seconds=time.perf_counter() - t_phase)
+    return total
 
 
 def check_update(torch, name, got, want, p0, lr):
@@ -1100,7 +1372,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import dataclasses
     from repro_torch.core.model import M4Config, init_m4
+    from repro_torch.core.probes import ProbeConfig
     from repro_torch.data.traffic import sample_scenario
     from repro_torch.kernels import build
     from repro_torch.sim import SimRequest, get_backend
@@ -1141,8 +1415,9 @@ def main() -> int:
     # allocator pools) are not counted
     m4 = get_backend("m4", params=params, cfg=cfg)
     m4.run(req_of(7, num_flows=20))
-    _, run_launches, _ = phase_full(
-        torch, np, "m4", m4, req_of(0), [req_of(s) for s in range(4)],
+    m4_req = req_of(0)
+    m4_res, run_launches, m4_rate = phase_full(
+        torch, np, "m4", m4, m4_req, [req_of(s) for s in range(4)],
         launches(2, 1), smi)
     fs = get_backend("flowsim_fast")
     fs.run(req_of(7, num_flows=20))
@@ -1158,15 +1433,27 @@ def main() -> int:
     phase_profile(torch, "m4", m4, req_of(3, num_flows=100), smi)
     phase_profile(torch, "flowsim_fast", fs, fs_req, smi, fs_rate)
 
-    # ---- the card against the CPU
+    # ---- the card against the CPU; the CPU's runs also record probes,
+    # which the probes phase holds the card's probed runs against
+    probes = ProbeConfig(stride=PROBE_STRIDE, max_samples=PROBE_SAMPLES)
     creq = req_of(5, num_flows=200)
     gpu = m4.run(creq)
     cpu = get_backend("m4", params=params_to(params, "cpu"), cfg=cfg,
-                      device="cpu").run(creq)
+                      device="cpu").run(dataclasses.replace(creq,
+                                                            probes=probes))
     compare_fcts(np, "m4", gpu.fcts, cpu.fcts, creq.num_flows)
-    phase_cpu_flowsim_fast(torch, np, fs_req, fs_res, dev)
+    fs_cpu_series = phase_cpu_flowsim_fast(torch, np, fs_req, fs_res, dev,
+                                           probes)
 
     phase_closed_loop(torch, np, m4, fs, cfg, smi)
+
+    probes_launches = phase_probes(torch, np, m4, fs, {
+        "m4_req": m4_req, "m4_res": m4_res, "m4_rate": m4_rate,
+        "m4_many": [req_of(s, num_flows=n) for s, n in
+                    ((1, 200), (2, 300), (3, 400), (4, 500))],
+        "fs_req": fs_req, "fs_res": fs_res, "fs_rate": fs_rate,
+        "cpu_req": creq, "m4_cpu_series": cpu.probes,
+        "fs_cpu_series": fs_cpu_series}, smi)
 
     t0 = time.perf_counter()
     eval_launches = phase_train(torch, np, cfg, dev, smi)
@@ -1187,6 +1474,7 @@ def main() -> int:
         src, replaces = sources[name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": run_launches[name],
+                     "probes_launches": probes_launches[name],
                      "train_eval_launches": eval_launches[name],
                      "sweep_launches": sweep_launches[name], **e})
     print(json.dumps({"kernels": line}), flush=True)

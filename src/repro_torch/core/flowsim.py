@@ -65,6 +65,8 @@ class FlowSimResult:
     event_types: np.ndarray
     event_fids: np.ndarray
     wallclock: float = 0.0
+    # finalized `repro.obs.timeseries/1` dict of a probed flowsim_fast run
+    probes: object = None
 
 
 def run_flowsim(topo, flows, until: Optional[float] = None,

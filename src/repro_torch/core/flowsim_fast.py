@@ -21,6 +21,12 @@ link) are taken exactly, in float64, and rounded once to float32: the
 reference leaves their summation order to XLA, and an exact sum makes
 the card and the CPU agree bitwise, so a tie in the freeze test or the
 departure race cannot break one way on the card and the other on the CPU.
+
+`probes=` records, every `stride` events, the post-event state into
+ring buffers on the device (`repro_torch.core.probes`): the max-min
+rates of the active set (one more `waterfill_event` call, on stride hits
+only), the exact remaining bytes, and the active flows per link. With
+probes off the loop is unchanged.
 """
 from __future__ import annotations
 
@@ -31,17 +37,21 @@ import torch
 
 from ..kernels import dispatch
 from ..kernels.waterfill.ref import BIG, MAX_ROUNDS, TIE  # noqa: F401
+from . import probes as _probes
 from .flowsim import FlowSimResult
+from .probes import FLOWSIM_CHANNELS, ProbeConfig, normalize_probes
 
 
 @torch.inference_mode()
 def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
-                     num_events=None, record=False):
+                     num_events=None, record=False,
+                     probes: ProbeConfig = None):
     """2N events (or `num_events`) over (B, N, L) arenas. Returns the
     absolute completion times (B, N); with `record`, also a dict of
     per-event (B, events) records: "fid", "is_arrival", and the
     water-filling's "rounds" and "capped" (see
-    `repro_torch.kernels.waterfill.ref.waterfill_event_ref`)."""
+    `repro_torch.kernels.waterfill.ref.waterfill_event_ref`); with
+    `probes`, last the ring buffers (see `core.probes`)."""
     B, N, _ = a.shape
     dev = a.device
     incidence = dispatch.waterfill_incidence(a)    # fixed for the run
@@ -53,7 +63,19 @@ def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
     t = torch.zeros(B, device=dev)
     length = 2 * N if num_events is None else num_events
     log = {k: [] for k in ("fid", "is_arrival", "rounds", "capped")}
-    for _ in range(length):
+    if probes is not None:
+        bufs = _probes.init_buffers(probes, batch=B, num_flows=N,
+                                    num_links=a.shape[2], device=dev)
+        vals = {
+            # max-min rates of the post-event active set: one more
+            # water-filling, on stride hits only
+            "flow_rate": lambda: dispatch.waterfill_event(
+                incidence, cap, active, max_rounds=MAX_ROUNDS)[0],
+            "flow_remaining": lambda: remaining / 8.0,     # bits -> bytes
+            "link_active": lambda: torch.bmm(
+                active.float()[:, None], a)[:, 0],
+        }
+    for ev in range(length):
         rates, rounds, capped = dispatch.waterfill_event(
             incidence, cap, active, max_rounds=MAX_ROUNDS)
         tta = torch.where(active & (rates > 0),
@@ -74,13 +96,18 @@ def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
         remaining[b1, fid] = torch.where(is_arr, sizes_bits[b1, fid], 0.0)
         ptr = ptr + is_arr.long()
         t = t_ev
+        if probes is not None:
+            _probes.record(probes, bufs, ev, t_ev, vals)
         if record:
             for k, v in (("fid", fid), ("is_arrival", is_arr),
                          ("rounds", rounds), ("capped", capped)):
                 log[k].append(v)
-    if not record:
-        return fct
-    return fct, {k: torch.stack(v, 1) for k, v in log.items()}
+    out = (fct,)
+    if record:
+        out += ({k: torch.stack(v, 1) for k, v in log.items()},)
+    if probes is not None:
+        out += (bufs,)
+    return out[0] if len(out) == 1 else out
 
 
 def _pack(topo, flows, n_total=None, l_total=None):
@@ -113,33 +140,65 @@ def _to_device(packed, device):
             torch.from_numpy(order).to(device, torch.long))
 
 
-def _result(topo, flows, fct_abs, wall):
+def _result(topo, flows, fct_abs, wall, series=None):
     arr = np.array([f.t_arrival for f in flows])
     fcts = fct_abs[:len(flows)] - arr
     ideal = np.array([topo.ideal_fct(f.size, f.path) for f in flows])
     empty = np.zeros(0, np.float64)
     return FlowSimResult(fcts=fcts, slowdowns=fcts / ideal,
                          event_times=empty, event_types=empty,
-                         event_fids=empty, wallclock=wall)
+                         event_fids=empty, wallclock=wall, probes=series)
 
 
-def run_flowsim_fast(topo, flows, device="cuda"):
-    """Drop-in fast path for `run_flowsim` (fcts + slowdowns only)."""
-    return run_flowsim_fast_batch([(topo, flows)], device)[0]
+def _finalize_fs_series(probes, bufs, topo, flows, *, num_flows, num_links):
+    series = _probes.finalize(probes, bufs, num_flows=num_flows,
+                              num_links=num_links, trim_flows=len(flows),
+                              trim_links=topo.num_links)
+    series["meta"] = {"backend": "flowsim_fast",
+                      "units": {"flow_rate": "bits/s",
+                                "flow_remaining": "bytes",
+                                "link_active": "flows"}}
+    return series
 
 
-def run_flowsim_fast_batch(scenarios, device="cuda"):
+def run_flowsim_fast(topo, flows, device="cuda", probes: ProbeConfig = None):
+    """Drop-in fast path for `run_flowsim` (fcts + slowdowns only).
+    `probes` records exact remaining-size / water-filling-rate /
+    link-occupancy series into `FlowSimResult.probes`; None runs the
+    unprobed loop."""
+    return run_flowsim_fast_batch([(topo, flows)], device, probes=probes)[0]
+
+
+def run_flowsim_fast_batch(scenarios, device="cuda",
+                           probes: ProbeConfig = None):
     """B (topo, flows) scenarios padded to the largest flow/link count and
-    run as one batch of arenas. Returns a list of FlowSimResult."""
+    run as one batch of arenas. Returns a list of FlowSimResult; with
+    `probes`, each carries its own series, trimmed to its flows and
+    links."""
+    probes = normalize_probes(probes, FLOWSIM_CHANNELS)
     scenarios = list(scenarios)
     if not scenarios:
         return []
+    dispatch.count_dispatch(device)
     n_max = max(len(flows) for _, flows in scenarios)
     l_max = max(topo.num_links for topo, _ in scenarios)
     args = _to_device([_pack(topo, flows, n_total=n_max, l_total=l_max)
                        for topo, flows in scenarios], device)
     t0 = time.perf_counter()
-    fct_abs = _event_scan_core(*args).cpu().numpy()
+    out = _event_scan_core(*args, probes=probes)
+    if probes is None:
+        fct_abs, bufs = out.cpu().numpy(), None
+    else:
+        fct_abs = out[0].cpu().numpy()
+        bufs = _probes.buffers_numpy(out[1])
     wall = time.perf_counter() - t0
-    return [_result(topo, flows, fct_abs[b], wall / len(scenarios))
-            for b, (topo, flows) in enumerate(scenarios)]
+    results = []
+    for b, (topo, flows) in enumerate(scenarios):
+        series = None
+        if bufs is not None:
+            series = _finalize_fs_series(
+                probes, {k: v[b] for k, v in bufs.items()}, topo, flows,
+                num_flows=n_max, num_links=l_max)
+        results.append(_result(topo, flows, fct_abs[b],
+                               wall / len(scenarios), series))
+    return results

@@ -16,6 +16,11 @@ and every op has a data-independent output shape (`_dedupe_ascending`
 replaces `unique`), so the host only enqueues work. Padded flows arrive
 at t = BIG after every real event and touch only their own and the dump
 rows.
+
+`probes=` records m4's belief about intermediate state (predicted queue
+per link, active flows per link, predicted remaining bytes per flow)
+every `stride` events into ring buffers on the device
+(`repro_torch.core.probes`); with probes off the loop is unchanged.
 """
 from __future__ import annotations
 
@@ -26,8 +31,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels import dispatch
 from ..nn import mlp
-from .model import M4Config, predict_sldn, spatial_update, temporal_update
+from . import probes as _probes
+from .model import (M4Config, predict_queue, predict_size, predict_sldn,
+                    spatial_update, temporal_update)
+from .probes import M4_CHANNELS, ProbeConfig, normalize_probes
 
 BIG = 1e30
 
@@ -349,18 +358,63 @@ def _open_loop_body(params, step, state, ptr, arr_order, arr_times):
     return state, ptr + is_arr.long(), t_ev, fid, is_arr, snap
 
 
+def _probe_values(params, static, state, N: int, num_links: int):
+    """Channel read-out thunks over the post-event arenas: the simulator's
+    *belief* about intermediate network state (the quantities the paper
+    densely supervises), (B, D) each. Called only on stride hits."""
+
+    def active():
+        return (state["arrived"] & ~state["done"])[:, :N].float()
+
+    def link_queue():
+        # MLP-queue head over every live link hidden state (log1p(KB)
+        # scale; the host-side finalize converts to bytes)
+        return predict_queue(params, state["link_h"][:, :num_links])
+
+    def link_active():
+        # active-flow count per link through the static path->slot table;
+        # invalid path slots scatter onto the dump row
+        rows = static["occ_rows"]                              # (B, N, P)
+        B = rows.shape[0]
+        src = active()[:, :, None].expand(rows.shape)
+        cnt = torch.zeros(B, num_links + 1, device=rows.device)
+        cnt.scatter_add_(1, rows.reshape(B, -1), src.reshape(B, -1))
+        return cnt[:, :num_links]
+
+    def flow_remaining():
+        # MLP-size head: remaining *fraction*, zeroed outside a flow's
+        # lifetime so the series reads as size -> 0 over the flow's life
+        return predict_size(params, state["flow_h"][:, :N]) * active()
+
+    return {"link_queue": link_queue, "link_active": link_active,
+            "flow_remaining": flow_remaining}
+
+
 @torch.inference_mode()
 def _open_loop_core(params, cfg: M4Config, num_links: int, static,
-                    arr_order, arr_times):
-    """2·N events over (B, N) arenas; returns (fct, done), both (B, N)."""
+                    arr_order, arr_times, probes: ProbeConfig = None):
+    """2·N events over (B, N) arenas; returns (fct, done), both (B, N),
+    and with `probes` also the ring buffers (see `core.probes`)."""
     B, N = arr_times.shape
     step = make_event_step(cfg, static, num_links)
     state = init_sim_state(params, cfg, static, N, num_links)
     ptr = torch.zeros(B, dtype=torch.long, device=arr_times.device)
-    for _ in range(2 * N):
-        state, ptr, *_ = _open_loop_body(params, step, state, ptr,
-                                         arr_order, arr_times)
-    return state["fct"][:, :N], state["done"][:, :N]
+    if probes is None:
+        for _ in range(2 * N):
+            state, ptr, *_ = _open_loop_body(params, step, state, ptr,
+                                             arr_order, arr_times)
+        return state["fct"][:, :N], state["done"][:, :N]
+    bufs = _probes.init_buffers(probes, batch=B, num_flows=N,
+                                num_links=num_links,
+                                device=arr_times.device)
+    # the loop updates `state` in place: the thunks read each event's
+    # post-event arenas
+    vals = _probe_values(params, static, state, N, num_links)
+    for k in range(2 * N):
+        state, ptr, t_ev, *_ = _open_loop_body(params, step, state, ptr,
+                                               arr_order, arr_times)
+        _probes.record(probes, bufs, k, t_ev, vals)
+    return state["fct"][:, :N], state["done"][:, :N], bufs
 
 
 @dataclass
@@ -368,30 +422,60 @@ class M4Result:
     fcts: np.ndarray
     slowdowns: np.ndarray
     wallclock: float          # enqueue + device execution, synchronised
+    # finalized `repro.obs.timeseries/1` dict when a ProbeConfig was passed
+    probes: object = None
+
+
+def _finalize_m4_series(probes, bufs, flows, *, num_flows, num_links,
+                        trim_links=None):
+    """Host-side unit conversion of one scenario's raw m4 probe ring:
+    remaining fraction x flow size -> bytes, MLP-queue log1p(KB) head ->
+    bytes."""
+    series = _probes.finalize(probes, bufs, num_flows=num_flows,
+                              num_links=num_links, trim_flows=len(flows),
+                              trim_links=trim_links)
+    ch = series["channels"]
+    if "flow_remaining" in ch:
+        sizes = np.array([f.size for f in flows], np.float64)
+        ch["flow_remaining"] = ch["flow_remaining"] * sizes[None, :]
+    if "link_queue" in ch:
+        ch["link_queue"] = np.expm1(np.maximum(ch["link_queue"], 0.0)) * 1e3
+    series["meta"] = {"backend": "m4",
+                      "units": {"link_queue": "bytes",
+                                "link_active": "flows",
+                                "flow_remaining": "bytes"}}
+    return series
 
 
 def _device(params) -> torch.device:
     return params["gru1"]["wi"].device
 
 
-def simulate_open_loop(params, cfg: M4Config, topo, net_config,
-                       flows) -> M4Result:
-    """One scenario through the open loop, on the device of `params`."""
-    return simulate_open_loop_batch(params, cfg,
-                                    [(topo, net_config, flows)])[0]
+def simulate_open_loop(params, cfg: M4Config, topo, net_config, flows, *,
+                       probes: ProbeConfig = None) -> M4Result:
+    """One scenario through the open loop, on the device of `params`.
+    `probes` also records intermediate-state time series into
+    `M4Result.probes`; None runs the unprobed loop."""
+    return simulate_open_loop_batch(params, cfg, [(topo, net_config, flows)],
+                                    probes=probes)[0]
 
 
-def simulate_open_loop_batch(params, cfg: M4Config, scenarios) -> list:
+def simulate_open_loop_batch(params, cfg: M4Config, scenarios, *,
+                             probes: ProbeConfig = None) -> list:
     """Run many scenarios as one batch of arenas.
 
     scenarios: sequence of (topo, net_config, flows). Arenas are padded to
     the largest flow/link/degree count in the batch; padded work is dead
     weight in exchange for one event loop whose every op covers all
-    scenarios."""
+    scenarios. `probes` records per-scenario series (batched ring
+    buffers, sliced and trimmed to each scenario's flows and links on the
+    host)."""
+    probes = normalize_probes(probes, M4_CHANNELS)
     scenarios = list(scenarios)
     if not scenarios:
         return []
     device = _device(params)
+    dispatch.count_dispatch(device)
     n_max = max(len(flows) for _, _, flows in scenarios)
     l_max = max(topo.num_links for topo, _, _ in scenarios)
     k_max = max(max_link_degree(flows, cfg.max_path)
@@ -411,12 +495,25 @@ def simulate_open_loop_batch(params, cfg: M4Config, scenarios) -> list:
     order_b = torch.from_numpy(np.stack(orders)).long().to(device)
     times_b = torch.from_numpy(np.stack(times)).to(device)
     t0 = time.perf_counter()
-    fct, _ = _open_loop_core(params, cfg, l_max, static, order_b, times_b)
-    fct = fct.cpu().numpy()
+    out = _open_loop_core(params, cfg, l_max, static, order_b, times_b,
+                          probes)
+    fct = out[0].cpu().numpy()
+    bufs = None if probes is None else _probes.buffers_numpy(out[2])
     wall = time.perf_counter() - t0
-    return [M4Result(fcts=fct[b, :n], slowdowns=fct[b, :n] / ideals[b][:n],
-                     wallclock=wall / len(scenarios))
-            for b, n in enumerate(counts)]
+    results = []
+    for b, n in enumerate(counts):
+        series = None
+        if bufs is not None:
+            topo_b, _, flows_b = scenarios[b]
+            series = _finalize_m4_series(
+                probes, {k: v[b] for k, v in bufs.items()}, flows_b,
+                num_flows=n_max, num_links=l_max,
+                trim_links=topo_b.num_links)
+        results.append(M4Result(fcts=fct[b, :n],
+                                slowdowns=fct[b, :n] / ideals[b][:n],
+                                wallclock=wall / len(scenarios),
+                                probes=series))
+    return results
 
 
 # ------------------------------------------------------------ closed loop

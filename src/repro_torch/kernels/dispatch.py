@@ -25,6 +25,19 @@ def _on_cpu(t) -> bool:
     return t.device.type == "cpu"
 
 
+def count_dispatch(device, *, plain=False) -> None:
+    """Count one `kernels.dispatch{mode=cuda|plain}` in the obs registry
+    for one entry-point call (an open-loop batch, a flowSim batch, a
+    training step) whose primitives run on `device`: the counterpart of
+    the JAX package's one count per kernel-mode resolution. Entry points
+    count, never launches: the event loops are host-bound, and a locked
+    counter per launch would cost every event."""
+    from ..obs.registry import get_registry, labeled
+    mode = "plain" if plain or torch.device(device).type == "cpu" \
+        else "cuda"
+    get_registry().inc(labeled("kernels.dispatch", mode=mode))
+
+
 def gru_cell_pair(p_f, p_l, x_f, h_f, x_l, h_l, *, plain=False):
     """Advance the flow GRU and the link GRU of one stage together
     (params {"wi","wh","bi","bh"} in the repro layout)."""

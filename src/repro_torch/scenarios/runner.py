@@ -6,13 +6,15 @@ into shape-compatible chunks and push each chunk through
 `Backend.run_chunked` -> `run_many`, where `m4` and `flowsim_fast` pad
 the chunk to one batch of arenas and run it on their device (one kernel
 launch per event step for the whole chunk). A re-run of an overlapping
-sweep is pure cache hits and launches nothing.
+sweep is pure cache hits and launches nothing. The misses run inside the
+obs phase ``sweep.simulate`` (a span when tracing is on, and
+``phase.sweep.simulate.*`` in the registry), and a cached run counts
+``sweep.cache_hits{backend=...}`` / ``sweep.cache_misses{backend=...}``.
 
 What the JAX runner has and this one has not yet: a fleet of worker
 processes (`fleet=`) and divergence stamping (`diff_against=`), which
-wait for the port's fleet; the obs spans and registry counters, which
-become the report's `simulate_s` wall time and its hit/miss counts; and
-the `no_retrace` compile budget, which waits for graph capture.
+wait for the port's fleet, and the `no_retrace` compile budget, which
+waits for graph capture.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
+from ..obs.registry import get_registry, labeled
+from ..obs.torchprof import phase as obs_phase
 from ..runtime.guards import check_result_finite
 from ..sim.api import SimRequest, SimResult
 from .cache import ResultCache, result_key
@@ -140,12 +144,20 @@ class SweepRunner:
                     results[i], cached[i] = hit, True
 
         miss = [i for i, r in enumerate(results) if r is None]
+        if use_cache:
+            reg = get_registry()
+            reg.inc(labeled("sweep.cache_hits", backend=self.backend.name),
+                    len(specs) - len(miss))
+            reg.inc(labeled("sweep.cache_misses", backend=self.backend.name),
+                    len(miss))
         simulate_s = 0.0
         if miss:
-            ts = time.perf_counter()
-            fresh = self.backend.run_chunked([requests[i] for i in miss],
-                                             self.chunk_size)
-            simulate_s = time.perf_counter() - ts
+            with obs_phase("sweep.simulate",
+                           attrs={"backend": self.backend.name,
+                                  "n": len(miss)}) as ph:
+                fresh = self.backend.run_chunked([requests[i] for i in miss],
+                                                 self.chunk_size)
+            simulate_s = ph.wall_s
             for i, res in zip(miss, fresh):
                 results[i] = res
                 check_result_finite(f"{self.backend.name}:{specs[i].name}",

@@ -102,9 +102,15 @@ class Backend:
             f"backend {self.name!r} has no closed-loop session")
 
 
-def _no_probes(request: SimRequest):
-    if request.probes is not None:
-        raise NotImplementedError("probes are not ported yet")
+def _batch_probes(requests: Sequence[SimRequest]):
+    """One batch of arenas runs one event loop, so every request must
+    carry the same ProbeConfig (as one compiled program does in the JAX
+    package)."""
+    probes = {r.probes for r in requests}
+    if len(probes) > 1:
+        raise ValueError(
+            "run_many requires a uniform `probes` setting across the batch")
+    return probes.pop() if probes else None
 
 
 def resolve_device(device) -> torch.device:
@@ -121,7 +127,8 @@ def resolve_device(device) -> torch.device:
 
 def _result(name, r) -> SimResult:
     return SimResult(fcts=r.fcts, slowdowns=r.slowdowns,
-                     wall_time=r.wallclock, backend=name, raw=r)
+                     wall_time=r.wallclock, backend=name, probes=r.probes,
+                     raw=r)
 
 
 @register_backend("packet")
@@ -134,7 +141,6 @@ class PacketBackend(Backend):
 
     def run(self, request: SimRequest) -> SimResult:
         from ..net.packetsim import PacketSim
-        _no_probes(request)
         flows = copy.deepcopy(list(request.flows))   # DES mutates flow state
         t0 = time.perf_counter()
         trace = PacketSim(request.topo, request.config,
@@ -151,6 +157,12 @@ class PacketBackend(Backend):
                       event_fids=np.array([e.fid for e in ev]),
                       event_remaining=tuple(tuple(e.remaining) for e in ev),
                       event_queues=tuple(tuple(e.path_queues) for e in ev))
+        if request.probes is not None:
+            # the DES has no device arenas; synthesize the same series
+            # schema on the host from its ground-truth event records
+            from ..obs.timeseries import series_from_packet_trace
+            kw["probes"] = series_from_packet_trace(
+                trace, request.probes, num_flows=len(flows))
         return SimResult(fcts=fcts, slowdowns=sldn, wall_time=wall,
                          backend=self.name, raw=trace, **kw)
 
@@ -162,13 +174,14 @@ class PacketBackend(Backend):
 @register_backend("flowsim")
 class FlowSimBackend(Backend):
     """Classical max-min flowSim, the numpy event loop (paper §2.1
-    baseline); it runs on the host by nature and takes no device."""
+    baseline); it runs on the host by nature and takes no device. It
+    records no probes: a probed request returns `probes=None`, as in the
+    JAX package."""
 
     name = "flowsim"
 
     def run(self, request: SimRequest) -> SimResult:
         from ..core.flowsim import run_flowsim
-        _no_probes(request)
         r = run_flowsim(request.topo, list(request.flows),
                         until=request.until,
                         record_events=request.record_events)
@@ -209,7 +222,8 @@ class FlowSimFastBackend(Backend):
         for r in requests:
             self._check(r)
         results = run_flowsim_fast_batch(
-            [(r.topo, list(r.flows)) for r in requests], self.device)
+            [(r.topo, list(r.flows)) for r in requests], self.device,
+            probes=_batch_probes(requests))
         return [_result(self.name, r) for r in results]
 
     def closed_loop(self, topo, config, flows):
@@ -223,7 +237,6 @@ class FlowSimFastBackend(Backend):
         if request.until is not None:
             raise NotImplementedError(
                 "flowsim_fast runs the full trace; `until` unsupported")
-        _no_probes(request)
 
 
 @register_backend("m4")
@@ -261,7 +274,8 @@ class M4Backend(Backend):
         from ..core.simulate import simulate_open_loop
         self._check(request)
         r = simulate_open_loop(self.params, self.cfg, request.topo,
-                               request.config, list(request.flows))
+                               request.config, list(request.flows),
+                               probes=request.probes)
         return _result(self.name, r)
 
     def run_many(self, requests: Sequence[SimRequest]) -> List[SimResult]:
@@ -270,7 +284,8 @@ class M4Backend(Backend):
             self._check(r)
         results = simulate_open_loop_batch(
             self.params, self.cfg,
-            [(r.topo, r.config, list(r.flows)) for r in requests])
+            [(r.topo, r.config, list(r.flows)) for r in requests],
+            probes=_batch_probes(requests))
         return [_result(self.name, r) for r in results]
 
     def closed_loop(self, topo, config, flows):
@@ -282,4 +297,3 @@ class M4Backend(Backend):
         if request.until is not None:
             raise NotImplementedError(
                 "m4 predicts the full trace; `until` unsupported")
-        _no_probes(request)

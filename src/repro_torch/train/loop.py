@@ -19,6 +19,11 @@ The port of `repro.train.loop`:
 - **Schedules & history.** Warmup+cosine LR over the true update count,
   and one history entry per epoch with the JAX package's keys
   (`compile_s` and `compiles` are 0: eager PyTorch compiles nothing).
+- **Telemetry.** A `train.epoch` span per epoch (when tracing is on),
+  and `train.steps` / `train.step_wall_s` in the obs registry, whose
+  snapshot `train_suite` reports under `obs`. (`train.compiles` and
+  `train.compile_wall_s` stay absent until graph capture has compiles to
+  count.)
 - **Evaluation.** `evaluate_m4` reports the per-flow slowdown error of
   m4 and of a baseline (flowSim) against the packet ground truth (§5.2),
   over scenario specs, with the ground truth cached by the sweep runner.
@@ -43,6 +48,9 @@ import torch
 from ..core.events import EventBatch
 from ..core.model import M4Config, init_m4
 from ..core.training import event_scan_losses
+from ..kernels import dispatch
+from ..obs.registry import get_registry
+from ..obs.trace import get_tracer
 from ..optim import adamw_init, adamw_update, clip_by_global_norm
 from ..optim.schedules import linear_warmup_cosine
 from ..runtime import checkpoint as ckpt
@@ -300,7 +308,10 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
             f"update(s)/epoch x {tc.epochs} epochs [{tc.step_mode}] on "
             f"{device}")
 
+    reg = get_registry()
+    tracer = get_tracer()
     for ep in range(start_epoch, tc.epochs):
+        ep_span = tracer.span("train.epoch", attrs={"epoch": ep})
         t0 = time.perf_counter()
         order = np.arange(len(buckets), dtype=np.int64)
         if tc.shuffle:
@@ -311,6 +322,8 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
         for bi in order:
             b = buckets[int(bi)]
             ts = time.perf_counter()
+            # the differentiated step runs the plain versions (see above)
+            dispatch.count_dispatch(device, plain=True)
             params, opt, outs = step_fn(params, opt, b.arrays)
             outs = outs.cpu().numpy()    # waits for the device
             step_s += time.perf_counter() - ts
@@ -319,6 +332,8 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
             # per_sim: one row per sim; batch: one bucket-mean row
             weights.append(np.full(len(outs), b.size / len(outs),
                                    np.float64))
+        reg.inc("train.steps", len(order))
+        reg.observe("train.step_wall_s", step_s)
         outs = np.concatenate(outs_all)
         w = np.concatenate(weights)
         mean = (outs * w[:, None]).sum(0) / w.sum()
@@ -334,6 +349,8 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
             f"(sldn={entry['sldn']:.4f} size={entry['size']:.4f} "
             f"queue={entry['queue']:.4f}) lr={entry['lr']:.2e} "
             f"{entry['wall_s']:.1f}s")
+        ep_span.end(loss=entry["loss"], compiles=0, compile_s=0.0,
+                    step_s=entry["step_s"])
         if tc.ckpt_dir and ((ep + 1) % tc.ckpt_every == 0
                             or ep + 1 == tc.epochs):
             ckpt.save(tc.ckpt_dir, ep + 1,
@@ -400,7 +417,7 @@ def train_suite(suite, m4cfg: M4Config, tc: TrainConfig = TrainConfig(), *,
 
     The one-call pipeline of the CLI (`python -m repro_torch.train`).
     Returns (TrainState, report) where `report` has the JAX package's
-    keys but two: `obs` (the port has no obs layer yet) and
+    keys, `obs` (the process registry's snapshot) among them, but one:
     `train.compiles` (eager PyTorch compiles nothing to count)."""
     from .data import build_dataset
     device = resolve_device(device)
@@ -434,6 +451,10 @@ def train_suite(suite, m4cfg: M4Config, tc: TrainConfig = TrainConfig(), *,
             f"{e['baseline']} {e[e['baseline'] + '_err_mean']:.3f} "
             f"({'beats' if e['m4_beats_baseline'] else 'LOSES TO'} baseline)")
     report["wall_s"] = round(time.perf_counter() - t0, 2)
+    # the process obs snapshot (train.* + any sweep/eval counters) rides
+    # along in train_log.json, so `python -m repro_torch.obs --merge
+    # results/train_log.json` reads it
+    report["obs"] = get_registry().snapshot()
     return state, report
 
 

@@ -406,3 +406,53 @@ def test_run_chunked_of_mixed_topologies_matches_the_cpu(card):
     cpu = get_backend("flowsim_fast", device="cpu").run_chunked(reqs, 8)
     for a, b in zip(gpu, cpu):
         assert a.fcts.tobytes() == b.fcts.tobytes()
+
+
+def test_probed_m4_on_the_card(card):
+    """Probes on m4 add no kernel launch (2 GRU-pair and 1 GNN launch per
+    event), leave the FCTs bitwise as unprobed, and give the CPU's series
+    at rtol 1e-4 (the bar of FCTs across devices)."""
+    import dataclasses
+    from repro_torch.core.probes import ProbeConfig
+    cfg = M4Config(**GATE)
+    params = init_m4(0, cfg)
+    req = SimRequest.from_scenario(sample_scenario(2, num_flows=60))
+    probed = dataclasses.replace(req, probes=ProbeConfig(stride=3,
+                                                         max_samples=16))
+    backend = get_backend("m4", params=params, cfg=cfg)
+    plain = backend.run(req)
+    n_gru, n_gnn = gru_ops.gru_pair.launches, bip_ops.bipartite_round.launches
+    got = backend.run(probed)
+    assert gru_ops.gru_pair.launches == n_gru + 2 * 120
+    assert bip_ops.bipartite_round.launches == n_gnn + 120
+    assert got.fcts.tobytes() == plain.fcts.tobytes()
+    assert got.probes["ev"].tolist() == list(range(72, 120, 3))
+    cpu = get_backend("m4", params=params, cfg=cfg,
+                      device="cpu").run(probed).probes
+    np.testing.assert_array_equal(got.probes["ev"], cpu["ev"])
+    for ch, v in got.probes["channels"].items():
+        np.testing.assert_allclose(v, cpu["channels"][ch], rtol=1e-4,
+                                   atol=1e-4 * np.abs(v).max(), err_msg=ch)
+
+
+def test_probed_flowsim_fast_on_the_card(card):
+    """One more water-filling launch per stride hit (the flow_rate
+    channel), FCTs bitwise as unprobed, and the series bitwise as the
+    CPU's (the water-filling is exact on both)."""
+    import dataclasses
+    from repro_torch.core.probes import ProbeConfig
+    req = SimRequest.from_scenario(sample_scenario(1, num_flows=200))
+    probed = dataclasses.replace(req, probes=ProbeConfig(stride=4,
+                                                         max_samples=32))
+    backend = get_backend("flowsim_fast")
+    plain = backend.run(req)
+    n_event = wf_ops.waterfill_event.launches
+    n_rowmin = wf_ops.masked_rowmin.launches
+    got = backend.run(probed)
+    assert wf_ops.waterfill_event.launches == n_event + 400 + 100
+    assert wf_ops.masked_rowmin.launches == n_rowmin
+    assert got.fcts.tobytes() == plain.fcts.tobytes()
+    cpu = get_backend("flowsim_fast", device="cpu").run(probed).probes
+    np.testing.assert_array_equal(got.probes["t"], cpu["t"])
+    for ch, v in got.probes["channels"].items():
+        np.testing.assert_array_equal(v, cpu["channels"][ch], err_msg=ch)

@@ -6,8 +6,9 @@
   `flowsim_fast` backend at rtol 1e-5 under both kernel modes of the JAX
   package (link sums in another order), and the numpy reference at rtol
   1e-4, as tests/test_flowsim_fast.py holds JAX's;
-- `run_many` equals looped `run`; `until` and `probes` raise; the
-  fingerprint names the device.
+- `run_many` equals looped `run`; `until` raises; numpy flowSim ignores
+  `probes` (no series, as JAX's) and `flowsim_fast` returns a series;
+  the fingerprint names the device.
 """
 import dataclasses
 
@@ -22,6 +23,7 @@ from repro.data.traffic import sample_scenario as jax_scenario  # noqa: E402
 from repro.sim import SimRequest as JaxRequest  # noqa: E402
 from repro.sim import get_backend as jax_backend  # noqa: E402
 from repro_torch.core import flowsim_fast as tff  # noqa: E402
+from repro_torch.core.probes import ProbeConfig  # noqa: E402
 from repro_torch.core.flowsim import run_flowsim  # noqa: E402
 from repro_torch.data.traffic import sample_scenario  # noqa: E402
 from repro_torch.net import FatTree, Flow  # noqa: E402
@@ -60,8 +62,10 @@ def test_flowsim_backend_passes_options():
     cut = get_backend("flowsim").run(dataclasses.replace(
         req, until=float(res.event_times[30])))
     assert np.isnan(cut.fcts).any()
-    with pytest.raises(NotImplementedError):
-        get_backend("flowsim").run(dataclasses.replace(req, probes=object()))
+    probed = get_backend("flowsim").run(dataclasses.replace(
+        req, probes=ProbeConfig(stride=2)))
+    assert probed.probes is None
+    np.testing.assert_array_equal(probed.fcts, res.fcts)
 
 
 @pytest.mark.parametrize("mode", ["xla", "interpret"])
@@ -142,8 +146,11 @@ def test_flowsim_fast_options_raise_and_fingerprint():
     req = _req(1, num_flows=10)
     with pytest.raises(NotImplementedError):
         backend.run(dataclasses.replace(req, until=1.0))
-    with pytest.raises(NotImplementedError):
-        backend.run_many([dataclasses.replace(req, probes=object())])
+    (probed,) = backend.run_many([dataclasses.replace(
+        req, probes=ProbeConfig(stride=2, max_samples=4))])
+    assert probed.probes["ev"].tolist() == [12, 14, 16, 18]
+    assert set(probed.probes["channels"]) == {"link_active",
+                                              "flow_remaining", "flow_rate"}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_backend("flowsim_fast")

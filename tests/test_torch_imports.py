@@ -2,8 +2,9 @@
 import neither `jax` nor anything of the JAX package `repro`, nor
 `msgpack` or `zstandard`, which the machine with the card lacks (the
 port's checkpoints and blob store use its own codec, zlib and its own
-zstd decoder). The sweep engine, the training pipeline and both CLIs'
-modules are among those imported."""
+zstd decoder). The sweep engine, the training pipeline, the probes, the
+obs layer with its divergence observatory, and the CLIs' modules are
+among those imported."""
 import ast
 import os
 import subprocess
@@ -36,7 +37,11 @@ MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.sim.closedloop",
            "repro_torch.runtime.zstd", "repro_torch.scenarios",
            "repro_torch.scenarios.spec", "repro_torch.scenarios.suites",
            "repro_torch.scenarios.cache", "repro_torch.scenarios.runner",
-           "repro_torch.scenarios.__main__"]
+           "repro_torch.scenarios.__main__", "repro_torch.core.probes",
+           "repro_torch.obs", "repro_torch.obs.registry",
+           "repro_torch.obs.trace", "repro_torch.obs.export",
+           "repro_torch.obs.timeseries", "repro_torch.obs.torchprof",
+           "repro_torch.obs.diff", "repro_torch.obs.__main__"]
 
 
 def _forbidden(name: str) -> bool:

@@ -5,7 +5,8 @@ package's, on the CPU:
   shuffled walk matters) matches JAX `train_suite`'s history at 1e-4 from
   the same initial weights, with the same dataset key; its evaluation
   gives JAX's flowSim error exactly and m4's at 1e-4; the report has
-  JAX's keys but `obs` and `train.compiles`; and the stores are shared:
+  JAX's keys (its `obs` snapshot with the training and sweep counters)
+  but `train.compiles`; and the stores are shared:
   JAX's pipeline, pointed at the port's directories, finds every shard
   and every ground-truth result as a hit;
 - `build_dataset(workers > 1)` raises, naming the fleet;
@@ -82,7 +83,12 @@ def test_train_suite_matches_jax(tmp_path, monkeypatch):
         JaxTrainConfig(**tc), data_root=data, max_events=32,
         eval_specs=list(jax_suite("table3_empirical", **ev))[:2],
         eval_cache_dir=cache, log=quiet)
-    assert set(rep) == set(jrep) - {"obs"}
+    assert set(rep) == set(jrep)
+    assert rep["obs"]["schema"] == jrep["obs"]["schema"] == "repro.obs/1"
+    # one step call per bucket and epoch, as JAX counts them
+    assert rep["obs"]["counters"]["train.steps"] >= 4
+    assert 'sweep.cache_misses{backend="packet"}' in rep["obs"]["counters"]
+    assert "train.step_wall_s" in rep["obs"]["histograms"]
     assert set(rep["train"]) == set(jrep["train"]) - {"compiles"}
     assert rep["dataset"]["key"] == jrep["dataset"]["key"]
     assert (rep["dataset"]["hits"], rep["dataset"]["misses"]) == (0, 4)
