@@ -26,11 +26,17 @@ Phases, each printing one JSON line:
                  random weights): `run` of one 2000-flow Table-2 scenario,
                  then `run_many` of four, through get_backend("m4"); then
                  flowsim_fast the same way (2000 flows, `run` of the seed
-                 where the 32-round water-filling cap binds). Every flow
-                 done, FCTs finite and positive, and the launch counters
-                 show each path's kernels (m4: 2 GRU-pair launches and 1
-                 GNN launch per event; flowsim_fast: 1 water-filling
-                 launch per event and no row-min);
+                 where the 32-round water-filling cap binds). Each through
+                 the compiled loop (one CUDA graph of the event step per
+                 arena shape: a capture on the first call, replays on a
+                 second) and through the eager loop of the same requests:
+                 FCTs bitwise, one capture then none (TRACE_COUNTS), the
+                 graph pool's bytes, events/s of both back to back. Every
+                 flow done, FCTs finite and positive, and the launch
+                 counters show each path's kernels (m4: 2 GRU-pair
+                 launches and 1 GNN launch per event; flowsim_fast: 1
+                 water-filling launch per event and no row-min), the
+                 replays' counts exactly the eager loop's;
 5. profile     — m4 on a 100-flow scenario and flowsim_fast's 2000-flow
                  `run` under torch.profiler: device busy share (for
                  flowsim_fast also against its unprofiled `run`), CUDA
@@ -51,7 +57,9 @@ Phases, each printing one JSON line:
                  event, the other two launch nothing;
 8. probes      — the probed paths at full width, each a request with
                  ProbeConfig(stride 4, ring 256): m4's `run` of the full
-                 phase's 2000-flow scenario (FCTs bitwise as unprobed, 2
+                 phase's 2000-flow scenario (captured, 4 events per
+                 replay, against its eager loop bitwise, rings too; FCTs
+                 bitwise as unprobed, 2
                  GRU-pair and 1 GNN launch per event, the ring wrapped:
                  the last 256 of 1000 samples, in order, valid and
                  finite; events/s against the unprobed `run` just before
@@ -99,11 +107,24 @@ Phases, each printing one JSON line:
                  sims and 2 Table-3 eval specs of CLI_FLOWS = 500 flows,
                  one epoch), run twice: the second a finished resume with
                  the same weights hash, all dataset and ground-truth
-                 hits, and only the evaluation's m4 launching kernels.
+                 hits, and only the evaluation's m4 launching kernels;
+11. serve      — the simulation service at full width: SimService with
+                 lanes m4 (batch 8) and flowsim_fast (batch 4) behind the
+                 HTTP front-end on an ephemeral port; 4 client threads,
+                 each with its 8 requests in flight at once, post
+                 8 unique Table-2 specs in each of 2 shape buckets (500
+                 and 2000 flows, the 8-rack fat tree at 4-to-1) to both
+                 lanes, then all again. Every reply bitwise as `run_many`
+                 of its padded batch; one capture per bucket per lane, no
+                 retrace budget broken; the second round all cache hits
+                 with no launch and no capture; /metrics and /healthz;
+                 a drained close resolves a part bucket; a second service
+                 with no cache replays the captured programs (0
+                 captures). Requests/s, p50/p99 latency and queue delay.
 
 Then the `kernels` line (each kernel's launches on the full-size `run`,
-on the probed `run`s, in the train phase's evaluation and in the sweeps), the card's
-nvidia-smi line, and last
+on the probed `run`s, in the train phase's evaluation, in the sweeps and
+in the serve phase's first round), the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits nonzero and prints no result; so it does with no CUDA device, or
 when run outside the repository. Imports nothing of JAX.
@@ -134,6 +155,8 @@ CLI_FLOWS = 500        # flows of the training CLI's sims (sweep phase)
 PROBE_STRIDE = 4       # probes phase: a sample every 4 events ...
 PROBE_SAMPLES = 256    # ... into a ring of 256, which wraps at 2000 flows
 PROBE_RTOL = 1e-5      # a batched series against its scenario's own run
+SERVE_FLOWS = (500, 2000)  # serve phase: one shape bucket per flow count
+SERVE_UNIQUE = 8           # ... holding 8 unique specs each
 
 
 def emit(phase, **kw):
@@ -580,31 +603,85 @@ def check_fcts(np, results, reqs):
                                  "finite and positive")
 
 
-def phase_full(torch, np, name, backend, req, reqs, want_per_event, smi):
-    """`run` of req, then `run_many` of reqs, with the launch counters.
-    Returns the result and the counts of the `run`."""
-    (res,), counts, wall = run_counted(torch, lambda: [backend.run(req)])
-    check_fcts(np, [res], [req])
-    events = 2 * req.num_flows
-    want = {k: v * events for k, v in want_per_event.items()}
-    if counts != want:
-        raise AssertionError(f"{name} run: launches {counts}, expected {want}")
-    emit("full", path=name, entry="run", flows=req.num_flows, events=events,
-         wall_s=wall, events_per_s=events / wall, launches=counts, card=smi)
-    run_res, run_launches, run_rate = res, counts, events / wall
+def trace_counts(name):
+    """The TRACE_COUNTS family of a backend's event loop."""
+    from repro_torch.core import flowsim_fast, simulate
+    return (simulate if name == "m4" else flowsim_fast).TRACE_COUNTS
 
-    results, counts, wall = run_counted(torch, lambda: backend.run_many(reqs))
-    check_fcts(np, results, reqs)
-    events = 2 * max(r.num_flows for r in reqs)
-    want = {k: v * events for k, v in want_per_event.items()}
-    if counts != want:
-        raise AssertionError(f"{name} run_many: launches {counts}, "
-                             f"expected {want}")
-    emit("full", path=name, entry="run_many", scenarios=len(reqs),
-         events=events, wall_s=wall, events_per_s=events / wall,
-         scenario_events_per_s=len(reqs) * events / wall, launches=counts,
-         card=smi)
-    return run_res, run_launches, run_rate
+
+def same_result(np, a, b):
+    """FCTs and, where present, probe rings bitwise equal."""
+    if np.asarray(a.fcts).tobytes() != np.asarray(b.fcts).tobytes():
+        return False
+    if a.probes is None or b.probes is None:
+        return a.probes is b.probes
+    return all(a.probes[k].tobytes() == b.probes[k].tobytes()
+               for k in ("t", "ev")) and all(
+        v.tobytes() == b.probes["channels"][ch].tobytes()
+        for ch, v in a.probes["channels"].items())
+
+
+def captured_vs_eager(torch, np, name, call, want, label):
+    """Drive `call` through the captured loop twice (the first call
+    captures the entry's graphs, the second only replays), then through
+    the eager loop (`compiled.eager()`): every result bitwise equal,
+    launch counts `want` each time, one capture then none. Returns the
+    first captured call's results and counts, and the measurements."""
+    from repro_torch.core import compiled
+    tc = trace_counts(name)
+    c0 = sum(tc.values())
+    res, counts, wall = run_counted(torch, call)
+    c1 = sum(tc.values())
+    again, counts2, wall2 = run_counted(torch, call)
+    c2 = sum(tc.values())
+    entry = compiled.entries()[-1]
+    with compiled.eager():
+        eager, ecounts, ewall = run_counted(torch, call)
+    if sum(tc.values()) != c2:
+        raise AssertionError(f"{label}: the eager loop counted a compile")
+    if not counts == counts2 == ecounts == want:
+        raise AssertionError(f"{label}: launches {counts} / {counts2} / "
+                             f"eager {ecounts}, expected {want}")
+    if (c1 - c0, c2 - c1) != (1, 0):
+        raise AssertionError(f"{label}: captures {c1 - c0} then {c2 - c1}, "
+                             "expected 1 then 0")
+    if not all(same_result(np, a, b) and same_result(np, a, e)
+               for a, b, e in zip(res, again, eager)):
+        raise AssertionError(f"{label}: captured and eager loops differ")
+    return res, counts, {
+        "capture_call_wall_s": wall, "wall_s": wall2, "eager_wall_s": ewall,
+        "captures_first_call": c1 - c0, "captures_repeat_call": c2 - c1,
+        "graphs": entry["graphs"], "pool_bytes": entry["pool_bytes"],
+        "buffer_bytes": entry["buffer_bytes"], "bitwise_eager": True}
+
+
+def phase_full(torch, np, name, backend, req, reqs, want_per_event, smi):
+    """`run` of req, then `run_many` of reqs, through the captured loop
+    (the main path) and against the eager loop of the same requests
+    (`captured_vs_eager`), with events/s of both taken back to back.
+    Returns the captured `run`'s result, launch counts and events/s."""
+    out = None
+    for entry, call, events in (
+            ("run", lambda: [backend.run(req)], 2 * req.num_flows),
+            ("run_many", lambda: backend.run_many(reqs),
+             2 * max(r.num_flows for r in reqs))):
+        want = {k: v * events for k, v in want_per_event.items()}
+        results, counts, m = captured_vs_eager(
+            torch, np, name, call, want, f"{name} {entry}")
+        check_fcts(np, results, [req] if entry == "run" else reqs)
+        rate = events / m["wall_s"]
+        emit("full", path=name, entry=entry,
+             flows=[r.num_flows for r in ([req] if entry == "run"
+                                          else reqs)],
+             events=events, events_per_s=rate,
+             events_per_s_capture_call=events / m["capture_call_wall_s"],
+             eager_events_per_s=events / m["eager_wall_s"],
+             captured_over_eager=m["eager_wall_s"] / m["wall_s"],
+             scenario_events_per_s=len(results) * rate, launches=counts,
+             **m, card=smi)
+        if out is None:
+            out = (results[0], counts, rate)
+    return out
 
 
 def phase_profile(torch, name, backend, req, smi, events_per_s=None):
@@ -616,6 +693,9 @@ def phase_profile(torch, name, backend, req, smi, events_per_s=None):
     reqs = req if isinstance(req, list) else [req]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    # a call before the window, so that it holds replays of the captured
+    # loop and no capture
+    backend.run_many(reqs) if isinstance(req, list) else backend.run(req)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -829,9 +909,11 @@ def phase_probes(torch, np, m4, fs, base, smi):
     events = 2 * req.num_flows
     # the unprobed `run` again just before, for a rate taken back to back
     _, _, un_wall = run_counted(torch, lambda: m4.run(base["m4_req"]))
-    (res,), counts, wall = run_counted(torch, lambda: [m4.run(req)])
-    if counts != launches(2 * events, events):
-        raise AssertionError(f"m4 probed run: launches {counts}")
+    # the probed entry's capture, a replay, and the eager loop: bitwise
+    (res,), counts, m = captured_vs_eager(
+        torch, np, "m4", lambda: [m4.run(req)], launches(2 * events, events),
+        "m4 probed run")
+    wall = m["wall_s"]
     if res.fcts.tobytes() != base["m4_res"].fcts.tobytes():
         raise AssertionError("m4 probed run: FCTs differ from unprobed")
     hits = check_probed(np, "m4 probed run", res.probes, events, probes,
@@ -841,12 +923,12 @@ def phase_probes(torch, np, m4, fs, base, smi):
     emit("probes", path="m4", entry="run", flows=req.num_flows,
          events=events, stride=probes.stride, hits=hits,
          samples=len(res.probes["ev"]), last_ev=int(res.probes["ev"][-1]),
-         ring_bytes=ring_bytes(res.probes), wall_s=wall,
-         events_per_s=events / wall,
+         ring_bytes=ring_bytes(res.probes), events_per_s=events / wall,
          unprobed_events_per_s=events / un_wall,
          probed_over_unprobed=un_wall / wall,
          full_phase_unprobed_events_per_s=base["m4_rate"],
-         fcts_bitwise_unprobed=True, launches=counts, card=smi)
+         eager_events_per_s=events / m["eager_wall_s"],
+         fcts_bitwise_unprobed=True, launches=counts, **m, card=smi)
 
     # ---- m4 `run_many`, probed: each series trimmed to its scenario and
     # equal to that scenario's own probed `run`
@@ -877,12 +959,14 @@ def phase_probes(torch, np, m4, fs, base, smi):
     req = dataclasses.replace(base["fs_req"], probes=probes)
     events = 2 * req.num_flows
     _, _, un_wall = run_counted(torch, lambda: fs.run(base["fs_req"]))
-    (res,), counts, wall = run_counted(torch, lambda: [fs.run(req)])
-    hits = check_probed(np, "flowsim_fast probed run", res.probes, events,
-                        probes, FLOWSIM_CHANNELS)
-    if counts != launches(event=events + hits):
-        raise AssertionError(f"flowsim_fast probed run: launches {counts}, "
-                             f"expected {events} + {hits}")
+    hits = -(-events // probes.stride)
+    (res,), counts, m = captured_vs_eager(
+        torch, np, "flowsim_fast", lambda: [fs.run(req)],
+        launches(event=events + hits), "flowsim_fast probed run")
+    wall = m["wall_s"]
+    if check_probed(np, "flowsim_fast probed run", res.probes, events,
+                    probes, FLOWSIM_CHANNELS) != hits:
+        raise AssertionError("flowsim_fast probed run: stride hits")
     if res.fcts.tobytes() != base["fs_res"].fcts.tobytes():
         raise AssertionError("flowsim_fast probed run: FCTs differ from "
                              "unprobed")
@@ -892,13 +976,13 @@ def phase_probes(torch, np, m4, fs, base, smi):
     emit("probes", path="flowsim_fast", entry="run", flows=req.num_flows,
          events=events, stride=probes.stride, hits=hits,
          samples=len(fs_series["ev"]), last_ev=int(fs_series["ev"][-1]),
-         ring_bytes=ring_bytes(fs_series), wall_s=wall,
-         events_per_s=events / wall,
+         ring_bytes=ring_bytes(fs_series), events_per_s=events / wall,
          unprobed_events_per_s=events / un_wall,
          probed_over_unprobed=un_wall / wall,
          full_phase_unprobed_events_per_s=base["fs_rate"],
          waterfill_event_added_by_flow_rate=hits,
-         fcts_bitwise_unprobed=True, launches=counts, card=smi)
+         eager_events_per_s=events / m["eager_wall_s"],
+         fcts_bitwise_unprobed=True, launches=counts, **m, card=smi)
 
     # ---- the card against the CPU's probed runs (made in the cpu phase)
     gpu = m4.run(dataclasses.replace(base["cpu_req"], probes=probes))
@@ -1366,6 +1450,219 @@ def phase_sweep(torch, np, m4, fs, params, cfg, smi):
     return total
 
 
+def serve_specs(n_unique, flows):
+    """`n_unique` Table-2 specs (`random_spec`, the scenarios of
+    `sample_scenario`) on the 8-rack fat tree at 4-to-1 (80 links), at
+    each flow count of `flows`: one shape bucket per flow count."""
+    from repro_torch.scenarios.spec import random_spec
+    seeds = [s for s in range(256)
+             if random_spec(s, num_flows=1).oversub == "4-to-1"]
+    return [random_spec(s, num_flows=n) for n in flows
+            for s in seeds[:n_unique]]
+
+
+def record_batches(backend):
+    """Note every batch the service hands `backend.run_many`, with its
+    results; returns the list and the unwrapped `run_many`."""
+    plain, batches = backend.run_many, []
+
+    def run_many(requests):
+        out = plain(requests)
+        batches.append((list(requests), out))
+        return out
+    backend.run_many = run_many
+    return batches, plain
+
+
+def check_batches(np, name, batches, plain):
+    """Every recorded batch again through `run_many`: bitwise. Returns a
+    map content hash -> FCTs."""
+    fcts = {}
+    for reqs, out in batches:
+        for r, a, b in zip(reqs, out, plain(reqs)):
+            if np.asarray(a.fcts).tobytes() != np.asarray(b.fcts).tobytes():
+                raise AssertionError(f"serve {name}: a result differs from "
+                                     "run_many of its padded batch")
+            fcts[r.content_hash()] = np.asarray(a.fcts, np.float64)
+    return fcts
+
+
+def phase_serve(torch, np, params, cfg, smi):
+    """The simulation service at full width: lanes m4 (`init_m4(0)`,
+    `M4Config()`, batch 8) and flowsim_fast (batch 4) behind the HTTP
+    front-end on an ephemeral port; 4 client threads post SERVE_UNIQUE
+    specs in each of the buckets of SERVE_FLOWS to both lanes, each
+    client with all its requests in flight at once, then all again
+    (every one a cache hit); a drained close; then a second service
+    with no cache takes the same m4 requests and replays the process's
+    captured programs. Returns the first round's launch counts."""
+    import dataclasses
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import compiled
+    from repro_torch.obs import get_registry
+    from repro_torch.obs.export import lookup, parse_prometheus
+    from repro_torch.scenarios.spec import spec_to_dict
+    from repro_torch.serve import (ServeClient, ServeConfig, SimService,
+                                   start_http_server)
+    from repro_torch.sim import get_backend
+
+    t_phase = time.perf_counter()
+    specs = serve_specs(SERVE_UNIQUE, SERVE_FLOWS)
+    reqs = [sp.to_request() for sp in specs]
+    hashes = [r.content_hash() for r in reqs]
+    m4 = get_backend("m4", params=params, cfg=cfg)
+    fs = get_backend("flowsim_fast")
+    lanes = {"m4": (m4, 8), "flowsim_fast": (fs, 4)}
+    spies = {name: record_batches(b) for name, (b, _) in lanes.items()}
+    compiled.clear_compiled()
+    reg = get_registry()
+
+    def violations():
+        return reg.snapshot()["counters"].get(
+            "guards.no_retrace.violations", 0)
+    v0 = violations()
+    jobs = [(lane, i) for lane in lanes for i in range(len(specs))]
+    with tempfile.TemporaryDirectory() as cache:
+        # buckets flush when full (the deadline never comes in a round)
+        service = SimService(
+            {name: b for name, (b, _) in lanes.items()}, cache_dir=cache,
+            config={name: ServeConfig(batch_size=bs, flush_interval_s=30.0)
+                    for name, (_, bs) in lanes.items()})
+        server = start_http_server(service, port=0)
+        client = ServeClient(f"http://127.0.0.1:{server.server_address[1]}",
+                             timeout_s=600)
+        rounds = []
+        try:
+            for rnd in ("first", "cached"):
+                replies, lat, errors = {}, [], []
+
+                def post(lane, i):
+                    t0 = time.perf_counter()
+                    try:
+                        replies[(lane, i)] = client.simulate(
+                            spec_to_dict(specs[i]), backend=lane)
+                    except Exception as exc:
+                        errors.append(f"{lane} {i}: {exc}")
+                    lat.append(time.perf_counter() - t0)
+
+                def drive(part):
+                    # a client keeps all its requests in flight at once
+                    # (one connection each), so that buckets fill
+                    with ThreadPoolExecutor(len(part)) as pool:
+                        list(pool.map(lambda job: post(*job), part))
+                c0 = {n: sum(trace_counts(n).values()) for n in lanes}
+                threads = [threading.Thread(target=drive,
+                                            args=(jobs[k::4],))
+                           for k in range(4)]
+
+                def go():
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(900)
+                _, counts, wall = run_counted(torch, go)
+                if errors or len(replies) != len(jobs):
+                    raise AssertionError(f"serve {rnd}: {errors[:4]}")
+                caps = {n: sum(trace_counts(n).values()) - c0[n]
+                        for n in lanes}
+                rounds.append((rnd, replies, lat, counts, wall, caps,
+                               service.metrics()))
+            health = client.health()
+            prom = parse_prometheus(client.metrics_prometheus())
+            # a drained close resolves what is still queued: a part of a
+            # bucket, below its batch size, that only the drain flushes
+            extra = [dataclasses.replace(specs[0], seed=1000 + k)
+                     for k in range(3)]
+            futs = [service.submit(sp.to_request(), backend="flowsim_fast")
+                    for sp in extra]
+            if any(f.done() for f in futs):
+                raise AssertionError("serve: a part bucket flushed early")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close(drain=True, timeout=600)
+        if not all(f.done() and f.exception(timeout=0) is None
+                   for f in futs):
+            raise AssertionError("serve: close(drain=True) left a future")
+
+    fcts = {n: check_batches(np, n, spies[n][0], spies[n][1])
+            for n in lanes}
+    (_, first, lat1, counts1, wall1, caps1, m1), \
+        (_, cached, lat2, counts2, wall2, caps2, m2) = rounds
+    for (lane, i), reply in first.items():
+        if np.asarray(reply["fcts"], np.float64).tobytes() != \
+                fcts[lane][hashes[i]].tobytes():
+            raise AssertionError(f"serve {lane}: a reply differs from its "
+                                 "batch's result")
+        if cached[(lane, i)]["fcts"] != reply["fcts"]:
+            raise AssertionError(f"serve {lane}: the cached reply differs")
+    buckets = len(SERVE_FLOWS)
+    events = sum(2 * n for n in SERVE_FLOWS)
+    want = launches(2 * events, events, event=2 * events)
+    if counts1 != want or caps1 != {n: buckets for n in lanes}:
+        raise AssertionError(f"serve first round: launches {counts1} "
+                             f"(expected {want}), captures {caps1}")
+    if counts2 != launches() or caps2 != {n: 0 for n in lanes} or \
+            m2["cache_hits"] != len(jobs):
+        raise AssertionError(f"serve cached round: launches {counts2}, "
+                             f"captures {caps2}, hits {m2['cache_hits']}")
+    if violations() != v0 or m2["failed"] or m2["isolated_retries"]:
+        raise AssertionError("serve: a retrace budget broke or a batch "
+                             "was isolated")
+    if not health["ok"] or lookup(prom, "repro_serve_completed_total") \
+            != m2["completed"]:
+        raise AssertionError(f"serve: /healthz {health} or /metrics")
+
+    # a second service, no cache: the same m4 requests replay the
+    # process's captured programs
+    m4b = get_backend("m4", params=params, cfg=cfg)
+    batches_b, plain_b = record_batches(m4b)
+    c0 = sum(trace_counts("m4").values())
+    with SimService(m4b, config=ServeConfig(batch_size=8,
+                                            flush_interval_s=30.0)) as svc:
+        res2, counts3, wall3 = run_counted(torch, lambda: [
+            f.result(timeout=600)
+            for f in [svc.submit(r) for r in reqs]])
+    caps3 = sum(trace_counts("m4").values()) - c0
+    check_batches(np, "m4 (second service)", batches_b, plain_b)
+    same_as_first = all(np.asarray(r.fcts, np.float64).tobytes()
+                        == fcts["m4"][h].tobytes()
+                        for r, h in zip(res2, hashes))
+    if caps3 != 0 or counts3 != launches(2 * events, events):
+        raise AssertionError(f"serve second service: captures {caps3}, "
+                             f"launches {counts3}")
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs) * 1e3, q))
+    for rnd, lat, wall, m in (("first", lat1, wall1, m1),
+                              ("cached", lat2, wall2, m2)):
+        emit("serve", round=rnd, requests=len(jobs),
+             requests_per_s=len(jobs) / wall, wall_s=wall,
+             latency_p50_ms=pct(lat, 50), latency_p99_ms=pct(lat, 99),
+             queue_delay_p50_ms={n: m["lanes"][n]["queue_delay_p50_ms"]
+                                 for n in lanes},
+             queue_delay_p99_ms={n: m["lanes"][n]["queue_delay_p99_ms"]
+                                 for n in lanes},
+             cache_hits=m["cache_hits"], batches=m["batches"],
+             compiles=m["compiles"],
+             launches=counts1 if rnd == "first" else counts2,
+             captures=caps1 if rnd == "first" else caps2, card=smi)
+    emit("serve", step="checks", lanes={n: bs for n, (_, bs) in
+                                        lanes.items()},
+         flows=list(SERVE_FLOWS), unique_per_bucket=SERVE_UNIQUE,
+         results_bitwise_run_many=True, captures_per_bucket=1,
+         no_retrace_violations=violations() - v0,
+         entries=compiled.entries(), drained=len(futs),
+         second_service_captures=caps3, second_service_wall_s=wall3,
+         second_service_launches=counts3,
+         second_service_same_as_first=same_as_first, healthz=health,
+         card=smi)
+    emit("serve", step="phase", seconds=time.perf_counter() - t_phase)
+    return counts1
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1460,6 +1757,7 @@ def main() -> int:
     emit("train", step="phase", seconds=time.perf_counter() - t0)
 
     sweep_launches = phase_sweep(torch, np, m4, fs, params, cfg, smi)
+    serve_launches = phase_serve(torch, np, params, cfg, smi)
 
     sources = {"fused_gru_pair": ("src/repro_torch/kernels/csrc/fused_gru.cu",
                                   "src/repro/kernels/fused_gru/kernel.py:21"),
@@ -1476,7 +1774,8 @@ def main() -> int:
                      "replaces": replaces, "launches": run_launches[name],
                      "probes_launches": probes_launches[name],
                      "train_eval_launches": eval_launches[name],
-                     "sweep_launches": sweep_launches[name], **e})
+                     "sweep_launches": sweep_launches[name],
+                     "serve_launches": serve_launches[name], **e})
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

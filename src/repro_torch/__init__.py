@@ -13,7 +13,10 @@ reference it is held against, but imports nothing of it (nor `jax`):
                            in one launch; the row-min alone): CUDA kernels
                            on a card, plain PyTorch on the CPU
     repro_torch.core       M4Config, the model, m4's open and closed loops,
-                           flowSim (numpy) and flowsim_fast, make_backlog
+                           flowSim (numpy) and flowsim_fast, make_backlog;
+                           `core.compiled`, one compiled program (a CUDA
+                           graph on a card) per arena shape of the open
+                           loops
     repro_torch.sim        SimRequest / SimResult, the backend registry
                            (packet, flowsim, flowsim_fast, m4),
                            run_closed_loop
@@ -21,7 +24,11 @@ reference it is held against, but imports nothing of it (nor `jax`):
                            (python -m repro_torch.scenarios)
     repro_torch.train      dataset store, fit, evaluate_m4, train_suite
                            (python -m repro_torch.train)
+    repro_torch.serve      SimService: dynamic batching into shape
+                           buckets, coalescing, backpressure, an HTTP
+                           front-end (python -m repro_torch.serve)
     repro_torch.runtime    checkpoints, blob store, zstd reader, guards
+                           (no_retrace)
     repro_torch.weights    the bridge from a JAX parameter tree
 
 Entry points:

@@ -13,12 +13,13 @@ buffers:
 - ``flow_rate``       per-flow max-min rate (flowsim's water-filling)
 
 The port of `repro.core.probes`. JAX takes a sample under `lax.cond`
-inside its scan; the port's loops count events in a Python `for`, so
-`record` decides a stride hit from that host counter, skips the read-out
-on a miss, and on a hit writes the sample into ring slot
-``(k // stride) % max_samples`` with in-place copies: no `.item()` and no
-device-to-host copy. (A later graph capture of the event step replays
-`stride` events per graph, so the host decides the hit per replay.)
+inside its scan; the port's loops run as programs of
+`repro_torch.core.compiled`, whose probed steps are an event, its sample
+and `stride - 1` more events, so a stride hit is decided by the program's
+shape and never by a device value. `record` writes the sample into ring
+slot ``hits % max_samples`` with in-place index copies, where `hits` is a
+counter on the device that each sample advances (a captured graph
+replays it): no `.item()` and no device-to-host copy.
 ``probes=None`` runs the loop exactly as unprobed: no extra tensor op and
 no extra allocation.
 
@@ -93,7 +94,8 @@ def normalize_probes(probes: Optional[ProbeConfig],
 def init_buffers(probes: ProbeConfig, *, batch: int, num_flows: int,
                  num_links: int, device) -> Dict[str, torch.Tensor]:
     """Preallocated ring buffers, (B, S) and (B, S, D), on `device`. The
-    `ev` slots start at -1 so never-written slots show on the host."""
+    `ev` slots start at -1 so never-written slots show on the host
+    (`reset_buffers` restores that state in place)."""
     S = probes.max_samples
     bufs = {"t": torch.zeros(batch, S, device=device),
             "ev": torch.full((batch, S), -1, dtype=torch.int32,
@@ -104,18 +106,26 @@ def init_buffers(probes: ProbeConfig, *, batch: int, num_flows: int,
     return bufs
 
 
-def record(probes: ProbeConfig, bufs, ev_idx: int, t_ev,
+def reset_buffers(bufs) -> None:
+    """Back to `init_buffers`' state, in place."""
+    for k, v in bufs.items():
+        v.fill_(-1 if k == "ev" else 0)
+
+
+def record(probes: ProbeConfig, bufs, hits: torch.Tensor, t_ev,
            values: Dict[str, Callable[[], torch.Tensor]]) -> None:
-    """Write one sample if the host event counter `ev_idx` is a stride
-    hit. `t_ev` is the (B,) event time on the device; `values` maps each
-    channel to a thunk giving its (B, D) sample, called only on a hit."""
-    if ev_idx % probes.stride:
-        return
-    slot = (ev_idx // probes.stride) % probes.max_samples
-    bufs["t"][:, slot].copy_(t_ev)
-    bufs["ev"][:, slot].fill_(ev_idx)
+    """Write the sample of stride hit number `hits` (a 0-d int64 device
+    counter, advanced here) into ring slot ``hits % max_samples``: the
+    event index ``hits * stride``, the (B,) event times `t_ev`, and each
+    channel's (B, D) sample from its thunk in `values`."""
+    slot = (hits % probes.max_samples).reshape(1)
+    B = t_ev.shape[0]
+    bufs["t"].index_copy_(1, slot, t_ev[:, None])
+    bufs["ev"].index_copy_(1, slot, (hits * probes.stride).to(
+        torch.int32).expand(B, 1))
     for ch in probes.channels:
-        bufs[ch][:, slot].copy_(values[ch]())
+        bufs[ch].index_copy_(1, slot, values[ch]()[:, None])
+    hits.add_(1)
 
 
 def finalize(probes: ProbeConfig, bufs, *, num_flows: int, num_links: int,

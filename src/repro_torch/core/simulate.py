@@ -7,15 +7,26 @@ GRU-1/GRU-A in time, runs the GNN rounds, refreshes the states with
 GRU-2/GRU-B, re-predicts the departures of the snapshot's flows and
 scatters the results back; masked snapshot slots write to a dump row.
 
-A port of `repro.core.simulate`'s incremental program. Where JAX runs one
-`lax.scan` under `vmap`, the port runs a Python loop of 2·N event steps
-over arenas that carry an explicit leading batch axis B (one scenario per
-row; `simulate_open_loop` is B = 1), updated in place. No step syncs with
+A port of `repro.core.simulate`. Where JAX runs one `lax.scan` under
+`vmap` and `jax.jit`, the port runs 2·N event steps over arenas that
+carry an explicit leading batch axis B (one scenario per row;
+`simulate_open_loop` is B = 1), updated in place, as one program of
+`repro_torch.core.compiled` per arena shape: on a card one event step
+captured as a CUDA graph and replayed 2·N times, on the CPU the same step
+run eagerly. Each new program counts one in `TRACE_COUNTS` under the JAX
+package's names ("open_loop" for `simulate_open_loop`,
+"open_loop_batched" for `simulate_open_loop_batch`). No step syncs with
 the host: the event pointer, time, flow id and kind stay device tensors,
 and every op has a data-independent output shape (`_dedupe_ascending`
-replaces `unique`), so the host only enqueues work. Padded flows arrive
-at t = BIG after every real event and touch only their own and the dump
-rows.
+replaces `unique`). Padded flows arrive at t = BIG after every real
+event and touch only their own and the dump rows.
+
+`snapshot_impl` selects the event-step program, as in the JAX package:
+"incremental" (the snapshot from the occupancy arenas, dump-row
+scatter-back, the kernels through `kernels.dispatch`) or "dense" (the
+seed program that JAX's perf gate measures against: the O(N·P²) dense
+candidate search, blend-style scatter-back, and the plain GRU cells and
+GNN on any device).
 
 `probes=` records m4's belief about intermediate state (predicted queue
 per link, active flows per link, predicted remaining bytes per flow)
@@ -33,12 +44,19 @@ import torch
 
 from ..kernels import dispatch
 from ..nn import mlp
+from ..weights import tree_map
+from . import compiled
 from . import probes as _probes
 from .model import (M4Config, predict_queue, predict_size, predict_sldn,
                     spatial_update, temporal_update)
 from .probes import M4_CHANNELS, ProbeConfig, normalize_probes
 
 BIG = 1e30
+
+# New compiled programs per entry point ("open_loop", "open_loop_batched"):
+# one per key of `repro_torch.core.compiled`, where the JAX package counts
+# its XLA traces under the same names.
+TRACE_COUNTS = Counter()
 
 
 # ------------------------------------------------------------ host tables
@@ -178,7 +196,7 @@ def _build_snapshot_dense(cfg: M4Config, flow_links, fid, active_mask):
         & (flow_links[:, :, :, None] >= 0)
     shares = share.any(3).any(2)                              # (B, N)
     score = torch.where(shares & active_mask, 1.0, 0.0)
-    score[b1, fid] = -1.0
+    score[b1, fid] = score.new_full((B,), -1.0)
     # stable top-(SF-1) by score (ties -> lower index)
     key = score * N - torch.arange(N, device=score.device)
     k = min(SF - 1, N)
@@ -231,10 +249,16 @@ def _build_links(cfg: M4Config, flow_links, snap_f, snap_f_mask,
 
 
 # ------------------------------------------------------------ event step
-def make_event_step(cfg: M4Config, static, num_links: int):
+def make_event_step(cfg: M4Config, static, num_links: int,
+                    snapshot_impl: str = "incremental"):
     """static: dict of (B, ...) arena constant tensors (flow_links,
     flow_feat, link_feat, ideal_fct, t_arrival, cfg_vec, link_members,
-    occ_rows, occ_slots)."""
+    occ_rows, occ_slots). `snapshot_impl` "incremental" or "dense" (see
+    the module docstring)."""
+    if snapshot_impl not in ("incremental", "dense"):
+        raise ValueError(f"snapshot_impl {snapshot_impl!r}: "
+                         "'incremental' or 'dense'")
+    legacy = snapshot_impl == "dense"
     SF, P = cfg.snap_flows, cfg.max_path
     B, N = static["flow_links"].shape[:2]
     dev = static["flow_links"].device
@@ -246,12 +270,22 @@ def make_event_step(cfg: M4Config, static, num_links: int):
         """One flow-level event per scenario (t_ev, fid, is_arrival: (B,)).
         Updates `state` in place; returns (state, sldn, snapshot)."""
         flow_links, cfg_vec = static["flow_links"], static["cfg_vec"]
-        snap_f, sfm = _build_snapshot(cfg, static, state["link_occ"], fid)
-        # occupancy arenas: the event flow enters (arrival) / leaves
-        # (departure) the membership slots of its own links — O(P)
-        state["link_occ"][b2, static["occ_rows"][b1, fid],
-                          static["occ_slots"][b1, fid]] = \
-            is_arrival[:, None].expand(B, P)
+        if legacy:
+            active = (state["arrived"] & ~state["done"])[:, :N].clone()
+            # the arriving flow counts (device values throughout: a
+            # host scalar would be a host-to-device copy, which a graph
+            # capture refuses)
+            active[b1, fid] = torch.ones_like(is_arrival)
+            snap_f, sfm = _build_snapshot_dense(cfg, flow_links, fid,
+                                                active)
+        else:
+            snap_f, sfm = _build_snapshot(cfg, static, state["link_occ"],
+                                          fid)
+            # occupancy arenas: the event flow enters (arrival) / leaves
+            # (departure) the membership slots of its own links — O(P)
+            state["link_occ"][b2, static["occ_rows"][b1, fid],
+                              static["occ_slots"][b1, fid]] = \
+                is_arrival[:, None].expand(B, P)
         fgather = snap_f.clamp(max=N - 1)   # clamped gathers (masked out)
         snap_l, slm, edge_l, edge_mask = _build_links(
             cfg, flow_links, fgather, sfm, num_links)
@@ -273,9 +307,9 @@ def make_event_step(cfg: M4Config, static, num_links: int):
         dt_l = t_ev[:, None] - state["link_last"][b2, sl_safe]
 
         f_h, l_h = temporal_update(params, cfg, f_h, l_h, dt_f, dt_l,
-                                   f_feat, l_feat, cfg_vec)
+                                   f_feat, l_feat, cfg_vec, plain=legacy)
         f_h2, l_h2 = spatial_update(params, cfg, f_h, l_h, edge_f, edge_l,
-                                    edge_mask, cfg_vec)
+                                    edge_mask, cfg_vec, plain=legacy)
         sldn = predict_sldn(params, f_h2,
                             static["flow_feat"][b2, fgather, 1] * 8.0,
                             cfg_vec)
@@ -285,16 +319,32 @@ def make_event_step(cfg: M4Config, static, num_links: int):
             + sldn * static["ideal_fct"][b2, fgather]
         t_dep_new = torch.maximum(t_dep_new, (t_ev + 1e-9)[:, None])
 
-        # scatter back with masked slots redirected to the dump row (index
-        # N / num_links): live rows receive exactly f_h2/l_h2, the dump row
-        # absorbs the rest (in no fixed order — it is never read back)
-        idx_f = torch.where(sfm > 0, snap_f, N)
-        idx_l = torch.where(slm > 0, sl_safe, num_links)
-        state["flow_h"][b2, idx_f] = f_h2
-        state["link_h"][b2, idx_l] = l_h2
-        state["flow_last"][b2, idx_f] = t_ev[:, None].expand(B, SF)
-        state["link_last"][b2, idx_l] = t_ev[:, None].expand_as(idx_l)
-        state["t_dep"][b2, idx_f] = t_dep_new
+        if legacy:
+            # the seed's blend scatter: read-modify-write of the arenas
+            wf, wl = sfm[..., None], slm[..., None]
+            t_b = t_ev[:, None]
+            state["flow_h"][b2, snap_f] = \
+                wf * f_h2 + (1 - wf) * state["flow_h"][b2, snap_f]
+            state["link_h"][b2, sl_safe] = \
+                wl * l_h2 + (1 - wl) * state["link_h"][b2, sl_safe]
+            state["flow_last"][b2, snap_f] = torch.where(
+                sfm > 0, t_b, state["flow_last"][b2, snap_f])
+            state["link_last"][b2, sl_safe] = torch.where(
+                slm > 0, t_b, state["link_last"][b2, sl_safe])
+            state["t_dep"][b2, snap_f] = torch.where(
+                sfm > 0, t_dep_new, state["t_dep"][b2, snap_f])
+        else:
+            # scatter back with masked slots redirected to the dump row
+            # (index N / num_links): live rows receive exactly f_h2/l_h2,
+            # the dump row absorbs the rest (in no fixed order — it is
+            # never read back)
+            idx_f = torch.where(sfm > 0, snap_f, N)
+            idx_l = torch.where(slm > 0, sl_safe, num_links)
+            state["flow_h"][b2, idx_f] = f_h2
+            state["link_h"][b2, idx_l] = l_h2
+            state["flow_last"][b2, idx_f] = t_ev[:, None].expand(B, SF)
+            state["link_last"][b2, idx_l] = t_ev[:, None].expand_as(idx_l)
+            state["t_dep"][b2, idx_f] = t_dep_new
         snap = {"snap_f": snap_f, "snap_mask": sfm, "snap_l": snap_l,
                 "snap_l_mask": slm, "edge_l": edge_l, "edge_mask": edge_mask}
         return state, sldn, snap
@@ -312,35 +362,55 @@ def init_sim_state(params, cfg: M4Config, static, N: int, num_links: int):
     B, _, K = static["link_members"].shape
     dev = static["flow_links"].device
     f32 = {"dtype": torch.float32, "device": dev}
+    b8 = {"dtype": torch.bool, "device": dev}
+    state = dict(
+        flow_h=torch.empty(B, N + 1, H, **f32),
+        link_h=torch.empty(B, L + 1, H, **f32),
+        flow_last=torch.empty(B, N + 1, **f32),
+        link_last=torch.empty(B, L + 1, **f32),
+        arrived=torch.empty(B, N + 1, **b8), done=torch.empty(B, N + 1, **b8),
+        link_occ=torch.empty(B, L + 1, K, **b8),
+        t_dep=torch.empty(B, N + 1, **f32), fct=torch.empty(B, N + 1, **f32),
+        t_arr=torch.empty(B, N + 1, **f32))
+    reset_sim_state(state, params, static, num_links)
+    return state
+
+
+def reset_sim_state(state, params, static, num_links: int) -> None:
+    """Fill the arenas of `init_sim_state` in place: every link's hidden
+    state from its static features, everything else empty."""
+    L = num_links
+    B, n1 = state["t_arr"].shape
     l_in = torch.cat([static["link_feat"][:, :L],
                       static["cfg_vec"][:, None].expand(B, L, -1)], -1)
-    link_h = torch.tanh(mlp(params["link_init"], l_in))
-    link_h = torch.cat([link_h, torch.zeros(B, 1, H, **f32)], 1)
-    return dict(
-        flow_h=torch.zeros(B, N + 1, H, **f32),
-        link_h=link_h,
-        flow_last=torch.zeros(B, N + 1, **f32),
-        link_last=torch.zeros(B, L + 1, **f32),
-        arrived=torch.zeros(B, N + 1, dtype=torch.bool, device=dev),
-        done=torch.zeros(B, N + 1, dtype=torch.bool, device=dev),
-        link_occ=torch.zeros(B, L + 1, K, dtype=torch.bool, device=dev),
-        t_dep=torch.full((B, N + 1), BIG, **f32),
-        fct=torch.zeros(B, N + 1, **f32),
-        t_arr=torch.cat([static["t_arrival"], torch.zeros(B, 1, **f32)], 1))
+    state["link_h"][:, :L] = torch.tanh(mlp(params["link_init"], l_in))
+    state["link_h"][:, L] = 0.0
+    for k in ("flow_h", "flow_last", "link_last", "arrived", "done",
+              "link_occ", "fct"):
+        state[k].zero_()
+    state["t_dep"].fill_(BIG)
+    state["t_arr"][:, :n1 - 1] = static["t_arrival"]
+    state["t_arr"][:, n1 - 1] = 0.0
 
 
 # ------------------------------------------------------------ open loop
-def _open_loop_body(params, step, state, ptr, arr_order, arr_times):
+def _open_loop_body(params, step, state, ptr, arr_order, arr_times,
+                    legacy: bool = False):
     """Race the next arrival against the earliest predicted departure and
-    process that event, for every scenario. Returns (state, ptr, t_ev,
-    fid, is_arr, snapshot), all device tensors."""
+    process that event, for every scenario; `ptr` (B,) advances in place.
+    Returns (state, ptr, t_ev, fid, is_arr, snapshot), all device tensors.
+    `legacy` runs the dense program's race and updates."""
     B, N = arr_times.shape
     b1 = torch.arange(B, device=ptr.device)
     pc = ptr.clamp(max=N - 1)[:, None]
     next_arr = torch.where(ptr < N, arr_times.gather(1, pc)[:, 0], BIG)
-    # invariant: t_dep rows < N are finite exactly for flows that are
-    # arrived-and-not-done, so the race reads the arena directly
-    dep_t = state["t_dep"][:, :N]
+    if legacy:
+        dep_t = torch.where(state["arrived"] & ~state["done"],
+                            state["t_dep"], BIG)[:, :N]
+    else:
+        # invariant: t_dep rows < N are finite exactly for flows that are
+        # arrived-and-not-done, so the race reads the arena directly
+        dep_t = state["t_dep"][:, :N]
     dep_i = dep_t.argmin(1)                    # first index on ties
     next_dep = dep_t.gather(1, dep_i[:, None])[:, 0]
     is_arr = next_arr <= next_dep              # arrivals win ties
@@ -348,14 +418,23 @@ def _open_loop_body(params, step, state, ptr, arr_order, arr_times):
     fid = torch.where(is_arr, arr_order.gather(1, pc)[:, 0], dep_i)
 
     state, _, snap = step(params, state, t_ev, fid, is_arr)
-    # every event at fid implies "arrived"; "done" iff departure; the
-    # arrival event's fct / t_dep writes go to the dump row
-    fid_or_dump = torch.where(is_arr, N, fid)
-    state["arrived"][b1, fid] = True
-    state["done"][b1, fid] = ~is_arr
-    state["fct"][b1, fid_or_dump] = t_ev - state["t_arr"][b1, fid]
-    state["t_dep"][b1, fid_or_dump] = BIG
-    return state, ptr + is_arr.long(), t_ev, fid, is_arr, snap
+    if legacy:
+        state["arrived"][b1, fid] = state["arrived"][b1, fid] | is_arr
+        state["done"][b1, fid] = state["done"][b1, fid] | ~is_arr
+        state["fct"][b1, fid] = torch.where(
+            is_arr, state["fct"][b1, fid], t_ev - state["t_arr"][b1, fid])
+        state["t_dep"][b1, fid] = torch.where(
+            is_arr, state["t_dep"][b1, fid], BIG)
+    else:
+        # every event at fid implies "arrived"; "done" iff departure; the
+        # arrival event's fct / t_dep writes go to the dump row
+        fid_or_dump = torch.where(is_arr, N, fid)
+        state["arrived"][b1, fid] = torch.ones_like(is_arr)
+        state["done"][b1, fid] = ~is_arr
+        state["fct"][b1, fid_or_dump] = t_ev - state["t_arr"][b1, fid]
+        state["t_dep"][b1, fid_or_dump] = torch.full_like(t_ev, BIG)
+    ptr.add_(is_arr.long())
+    return state, ptr, t_ev, fid, is_arr, snap
 
 
 def _probe_values(params, static, state, N: int, num_links: int):
@@ -390,31 +469,79 @@ def _probe_values(params, static, state, N: int, num_links: int):
             "flow_remaining": flow_remaining}
 
 
-@torch.inference_mode()
-def _open_loop_core(params, cfg: M4Config, num_links: int, static,
-                    arr_order, arr_times, probes: ProbeConfig = None):
-    """2·N events over (B, N) arenas; returns (fct, done), both (B, N),
-    and with `probes` also the ring buffers (see `core.probes`)."""
+def _m4_program(params, cfg: M4Config, num_links: int, static, arr_order,
+                arr_times, probes, snapshot_impl, length) -> compiled.Program:
+    """The open loop's program for arenas shaped like these: its own
+    copies of the weights, arenas and schedule, the carried state, and
+    one event step over them (with `probes`, also the rings, their hit
+    counter and the read-out)."""
     B, N = arr_times.shape
-    step = make_event_step(cfg, static, num_links)
-    state = init_sim_state(params, cfg, static, N, num_links)
-    ptr = torch.zeros(B, dtype=torch.long, device=arr_times.device)
-    if probes is None:
-        for _ in range(2 * N):
-            state, ptr, *_ = _open_loop_body(params, step, state, ptr,
-                                             arr_order, arr_times)
-        return state["fct"][:, :N], state["done"][:, :N]
-    bufs = _probes.init_buffers(probes, batch=B, num_flows=N,
-                                num_links=num_links,
-                                device=arr_times.device)
-    # the loop updates `state` in place: the thunks read each event's
-    # post-event arenas
-    vals = _probe_values(params, static, state, N, num_links)
-    for k in range(2 * N):
-        state, ptr, t_ev, *_ = _open_loop_body(params, step, state, ptr,
-                                               arr_order, arr_times)
-        _probes.record(probes, bufs, k, t_ev, vals)
-    return state["fct"][:, :N], state["done"][:, :N], bufs
+    p = tree_map(torch.clone, params)
+    st = {k: v.clone() for k, v in static.items()}
+    order, times = arr_order.clone(), arr_times.clone()
+    state = init_sim_state(p, cfg, st, N, num_links)
+    ptr = torch.zeros(B, dtype=torch.long, device=times.device)
+    step = make_event_step(cfg, st, num_links, snapshot_impl)
+    legacy = snapshot_impl == "dense"
+    owned = [*state.values(), *st.values(), order, times, ptr]
+    bufs = hits = sample = None
+    if probes is not None:
+        bufs = _probes.init_buffers(probes, batch=B, num_flows=N,
+                                    num_links=num_links,
+                                    device=times.device)
+        hits = torch.zeros((), dtype=torch.long, device=times.device)
+        owned += [*bufs.values(), hits]
+        # the read-outs see each event's post-event arenas in place
+        vals = _probe_values(p, st, state, N, num_links)
+
+        def sample(t_ev):
+            _probes.record(probes, bufs, hits, t_ev, vals)
+
+    def load(params, static, arr_order, arr_times):
+        tree_map(lambda d, x: d.copy_(x), p, params)
+        for k, v in static.items():
+            st[k].copy_(v)
+        order.copy_(arr_order)
+        times.copy_(arr_times)
+        reset_sim_state(state, p, st, num_links)
+        ptr.zero_()
+        if bufs is not None:
+            _probes.reset_buffers(bufs)
+            hits.zero_()
+
+    def event():
+        return _open_loop_body(p, step, state, ptr, order, times,
+                               legacy)[2]
+
+    def result():
+        out = (state["fct"][:, :N].clone(), state["done"][:, :N].clone())
+        if bufs is not None:
+            out += ({k: v.clone() for k, v in bufs.items()},)
+        return out
+
+    return compiled.Program(load=load, event=event, sample=sample,
+                            stride=None if probes is None else probes.stride,
+                            length=length, result=result, buffers=owned)
+
+
+def _open_loop_core(params, cfg: M4Config, num_links: int, static,
+                    arr_order, arr_times, probes: ProbeConfig = None, *,
+                    snapshot_impl: str = "incremental", num_events=None,
+                    entry: str = "open_loop_batched"):
+    """2·N events (or `num_events`) over (B, N) arenas, through entry
+    point `entry`'s compiled program for this key; returns (fct, done),
+    both (B, N), and with `probes` also the ring buffers (see
+    `core.probes`)."""
+    B, N = arr_times.shape
+    K = static["link_members"].shape[2]
+    length = 2 * N if num_events is None else num_events
+    key = (cfg, num_links, B, N, K, snapshot_impl, num_events, probes)
+
+    def build(params, static, arr_order, arr_times):
+        return _m4_program(params, cfg, num_links, static, arr_order,
+                           arr_times, probes, snapshot_impl, length)
+    return compiled.run(TRACE_COUNTS, entry, key, arr_times.device, build,
+                        params, static, arr_order, arr_times)
 
 
 @dataclass
@@ -422,6 +549,9 @@ class M4Result:
     fcts: np.ndarray
     slowdowns: np.ndarray
     wallclock: float          # enqueue + device execution, synchronised
+    # wall time of the cold first call (the program's capture on a card,
+    # its build on the CPU, and a run); 0.0 unless `warmup` split the two
+    compile_wall: float = 0.0
     # finalized `repro.obs.timeseries/1` dict when a ProbeConfig was passed
     probes: object = None
 
@@ -452,30 +582,44 @@ def _device(params) -> torch.device:
 
 
 def simulate_open_loop(params, cfg: M4Config, topo, net_config, flows, *,
+                       warmup=False, snapshot_impl="incremental",
                        probes: ProbeConfig = None) -> M4Result:
     """One scenario through the open loop, on the device of `params`.
-    `probes` also records intermediate-state time series into
-    `M4Result.probes`; None runs the unprobed loop."""
-    return simulate_open_loop_batch(params, cfg, [(topo, net_config, flows)],
-                                    probes=probes)[0]
+
+    `warmup=True` runs the loop twice and reports the cold first call
+    (the program's capture and a run) as `M4Result.compile_wall`, keeping
+    `wallclock` the second call's. `snapshot_impl="dense"` runs the seed
+    program (comparisons only). `probes` also records intermediate-state
+    time series into `M4Result.probes`; None runs the unprobed loop."""
+    return _run_open_loop(params, cfg, [(topo, net_config, flows)],
+                          entry="open_loop", warmup=warmup,
+                          snapshot_impl=snapshot_impl, probes=probes)[0]
 
 
 def simulate_open_loop_batch(params, cfg: M4Config, scenarios, *,
+                             snapshot_impl="incremental",
                              probes: ProbeConfig = None) -> list:
     """Run many scenarios as one batch of arenas.
 
     scenarios: sequence of (topo, net_config, flows). Arenas are padded to
     the largest flow/link/degree count in the batch; padded work is dead
-    weight in exchange for one event loop whose every op covers all
+    weight in exchange for one compiled program whose every op covers all
     scenarios. `probes` records per-scenario series (batched ring
     buffers, sliced and trimmed to each scenario's flows and links on the
     host)."""
+    return _run_open_loop(params, cfg, scenarios, entry="open_loop_batched",
+                          snapshot_impl=snapshot_impl, probes=probes)
+
+
+def _run_open_loop(params, cfg: M4Config, scenarios, *, entry: str,
+                   warmup=False, snapshot_impl="incremental",
+                   probes: ProbeConfig = None) -> list:
     probes = normalize_probes(probes, M4_CHANNELS)
     scenarios = list(scenarios)
     if not scenarios:
         return []
     device = _device(params)
-    dispatch.count_dispatch(device)
+    dispatch.count_dispatch(device, plain=snapshot_impl == "dense")
     n_max = max(len(flows) for _, _, flows in scenarios)
     l_max = max(topo.num_links for topo, _, _ in scenarios)
     k_max = max(max_link_degree(flows, cfg.max_path)
@@ -494,12 +638,18 @@ def simulate_open_loop_batch(params, cfg: M4Config, scenarios, *,
     static = stack_static(statics, device)
     order_b = torch.from_numpy(np.stack(orders)).long().to(device)
     times_b = torch.from_numpy(np.stack(times)).to(device)
-    t0 = time.perf_counter()
-    out = _open_loop_core(params, cfg, l_max, static, order_b, times_b,
-                          probes)
-    fct = out[0].cpu().numpy()
-    bufs = None if probes is None else _probes.buffers_numpy(out[2])
-    wall = time.perf_counter() - t0
+
+    def call():
+        t0 = time.perf_counter()
+        out = _open_loop_core(params, cfg, l_max, static, order_b, times_b,
+                              probes, snapshot_impl=snapshot_impl,
+                              entry=entry)
+        fct = out[0].cpu().numpy()
+        bufs = None if probes is None else _probes.buffers_numpy(out[2])
+        return fct, bufs, time.perf_counter() - t0
+
+    compile_wall = call()[2] if warmup else 0.0
+    fct, bufs, wall = call()
     results = []
     for b, n in enumerate(counts):
         series = None
@@ -512,6 +662,7 @@ def simulate_open_loop_batch(params, cfg: M4Config, scenarios, *,
         results.append(M4Result(fcts=fct[b, :n],
                                 slowdowns=fct[b, :n] / ideals[b][:n],
                                 wallclock=wall / len(scenarios),
+                                compile_wall=compile_wall,
                                 probes=series))
     return results
 

@@ -6,14 +6,16 @@ tracing is on) as a span:
 
 * ``phase.<name>.calls`` and the wall-clock seconds ``phase.<name>.wall_s``;
 * ``phase.<name>.live_bytes``: the bytes the CUDA caching allocator holds
-  for live tensors at phase exit (`live_array_bytes`).
+  for live tensors at phase exit (`live_array_bytes`);
+* ``phase.<name>.compiles``: the new compiled programs of the event
+  loops (`repro_torch.core.compiled`: a graph capture on a card, a
+  prepared eager step on the CPU) that the region built, read from the
+  ``TRACE_COUNTS`` families through ``guards.trace_total``; a region that
+  built any records its seconds as ``compile_wall_s``, else as
+  ``wall_s``, as the JAX package's `jaxprof` does.
 
-The JAX package also splits off ``compile_wall_s`` and counts
-``compiles`` (new XLA traces). Eager PyTorch compiles nothing, so
-``compiles`` stays 0 and every call lands in ``wall_s``, until the event
-steps are captured as CUDA graphs, whose captures are what it would
-count. `phase` adds no `torch.cuda.synchronize()` of its own: its callers
-end on a host copy of their results, which waits for the device.
+`phase` adds no `torch.cuda.synchronize()` of its own: its callers end
+on a host copy of their results, which waits for the device.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import time
 from contextlib import contextmanager
 from typing import Iterator, Optional
 
+from ..runtime.guards import trace_total
 from .registry import MetricsRegistry, get_registry
 from .trace import get_tracer
 
@@ -56,14 +59,20 @@ def phase(name: str, registry: Optional[MetricsRegistry] = None,
     tracer = get_tracer()
     stats = PhaseStats(name)
     sp = tracer.span(f"phase:{name}", attrs=attrs)
+    c0 = trace_total()
     t0 = time.perf_counter()
     try:
         yield stats
     finally:
         stats.wall_s = time.perf_counter() - t0
+        stats.compiles = max(0, trace_total() - c0)
         stats.live_bytes = live_array_bytes()
         reg.inc(f"phase.{name}.calls")
-        reg.observe(f"phase.{name}.wall_s", stats.wall_s)
+        if stats.compiles:
+            reg.inc(f"phase.{name}.compiles", stats.compiles)
+            reg.observe(f"phase.{name}.compile_wall_s", stats.wall_s)
+        else:
+            reg.observe(f"phase.{name}.wall_s", stats.wall_s)
         reg.set_gauge(f"phase.{name}.live_bytes", stats.live_bytes)
         sp.end(compiles=stats.compiles,
                wall_ms=round(stats.wall_s * 1e3, 3),

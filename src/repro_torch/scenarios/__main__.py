@@ -12,7 +12,9 @@ without a card they raise. `--backend m4` restores trained weights from
 the JAX package's benchmarks leave their model; `python -m
 repro_torch.train` writes the same format), at the width flags
 below. A missing checkpoint is an error: the sweep never trains at first
-use and never runs random weights.
+use and never runs random weights. The footer counts the compiled
+programs the sweep built (the loops' `TRACE_COUNTS`: graph captures on a
+card, prepared eager steps on the CPU).
 """
 from __future__ import annotations
 
@@ -104,12 +106,15 @@ def main(argv=None) -> int:
     if args.limit is not None:
         sweep = sweep.limit(args.limit)
 
+    from ..runtime.guards import trace_total
     runner = SweepRunner(_build_backend(args), cache_dir=args.cache_dir,
                          chunk_size=args.chunk or None)
+    c0 = trace_total()
     report = runner.run(sweep)
     print(report.table())
     print(f"-- simulate {report.simulate_s:.2f}s for {report.misses} "
           "scenario(s)")
+    print(f"-- compiles this run: {trace_total() - c0}")
     return 0
 
 

@@ -10,11 +10,14 @@ sweep is pure cache hits and launches nothing. The misses run inside the
 obs phase ``sweep.simulate`` (a span when tracing is on, and
 ``phase.sweep.simulate.*`` in the registry), and a cached run counts
 ``sweep.cache_hits{backend=...}`` / ``sweep.cache_misses{backend=...}``.
+Each chunk is one `run_many`, so at most one compiled program
+(`repro_torch.core.compiled`): the misses run under
+`no_retrace(allowed=chunks)`, which raises `RetraceError` if a shape or
+a static option varied mid-sweep.
 
 What the JAX runner has and this one has not yet: a fleet of worker
 processes (`fleet=`) and divergence stamping (`diff_against=`), which
-wait for the port's fleet, and the `no_retrace` compile budget, which
-waits for graph capture.
+wait for the port's fleet.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import numpy as np
 
 from ..obs.registry import get_registry, labeled
 from ..obs.torchprof import phase as obs_phase
-from ..runtime.guards import check_result_finite
+from ..runtime.guards import check_result_finite, no_retrace
 from ..sim.api import SimRequest, SimResult
 from .cache import ResultCache, result_key
 from .spec import ScenarioSpec, Sweep
@@ -152,9 +155,14 @@ class SweepRunner:
                     len(miss))
         simulate_s = 0.0
         if miss:
+            # each chunk is one run_many = at most one compiled program;
+            # more means a static arg or padding shape varied mid-sweep
+            chunks = 1 if not self.chunk_size else \
+                -(-len(miss) // self.chunk_size)
             with obs_phase("sweep.simulate",
                            attrs={"backend": self.backend.name,
-                                  "n": len(miss)}) as ph:
+                                  "n": len(miss)}) as ph, \
+                    no_retrace(allowed=chunks, label=f"sweep '{name}'"):
                 fresh = self.backend.run_chunked([requests[i] for i in miss],
                                                  self.chunk_size)
             simulate_s = ph.wall_s

@@ -215,7 +215,11 @@ class FlowSimFastBackend(Backend):
         return f"flowsim_fast_torch-k{kind}"
 
     def run(self, request: SimRequest) -> SimResult:
-        return self.run_many([request])[0]
+        from ..core.flowsim_fast import run_flowsim_fast
+        self._check(request)
+        r = run_flowsim_fast(request.topo, list(request.flows), self.device,
+                             probes=request.probes)
+        return _result(self.name, r)
 
     def run_many(self, requests: Sequence[SimRequest]) -> List[SimResult]:
         from ..core.flowsim_fast import run_flowsim_fast_batch

@@ -18,12 +18,12 @@ The port of `repro.train.loop`:
   walks the same buckets, reproducing the uninterrupted run's parameters.
 - **Schedules & history.** Warmup+cosine LR over the true update count,
   and one history entry per epoch with the JAX package's keys
-  (`compile_s` and `compiles` are 0: eager PyTorch compiles nothing).
+  (`compile_s` and `compiles` are 0: the training step runs eagerly).
 - **Telemetry.** A `train.epoch` span per epoch (when tracing is on),
   and `train.steps` / `train.step_wall_s` in the obs registry, whose
   snapshot `train_suite` reports under `obs`. (`train.compiles` and
-  `train.compile_wall_s` stay absent until graph capture has compiles to
-  count.)
+  `train.compile_wall_s` stay absent: the training step runs eagerly, and
+  only the inference loops have compiled programs to count.)
 - **Evaluation.** `evaluate_m4` reports the per-flow slowdown error of
   m4 and of a baseline (flowSim) against the packet ground truth (§5.2),
   over scenario specs, with the ground truth cached by the sweep runner.
@@ -418,7 +418,7 @@ def train_suite(suite, m4cfg: M4Config, tc: TrainConfig = TrainConfig(), *,
     The one-call pipeline of the CLI (`python -m repro_torch.train`).
     Returns (TrainState, report) where `report` has the JAX package's
     keys, `obs` (the process registry's snapshot) among them, but one:
-    `train.compiles` (eager PyTorch compiles nothing to count)."""
+    `train.compiles` (the training step runs eagerly: nothing to count)."""
     from .data import build_dataset
     device = resolve_device(device)
     t0 = time.perf_counter()

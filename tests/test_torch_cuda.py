@@ -8,7 +8,9 @@ Tolerances: 1e-5 for the GRU pair, 1e-4 for the GNN rounds (those of
 tests/test_kernels.py), none for the water-filling row-min (a min is
 exact: bitwise) and for the per-event water-filling (its link sums are
 exact: bitwise, rounds and capped too), 1e-4 relative for FCTs from the
-card against the CPU (kernels and CPU BLAS sum in other orders)."""
+card against the CPU (kernels and CPU BLAS sum in other orders). The
+captured event loops (`repro_torch.core.compiled`) equal the eager ones
+bitwise: the same kernels in the same order."""
 import numpy as np
 import pytest
 
@@ -456,3 +458,122 @@ def test_probed_flowsim_fast_on_the_card(card):
     np.testing.assert_array_equal(got.probes["t"], cpu["t"])
     for ch, v in got.probes["channels"].items():
         np.testing.assert_array_equal(v, cpu["channels"][ch], err_msg=ch)
+
+
+def _probed(req, stride=3, samples=16):
+    import dataclasses
+    from repro_torch.core.probes import ProbeConfig
+    return dataclasses.replace(req, probes=ProbeConfig(stride=stride,
+                                                       max_samples=samples))
+
+
+def _launch_counts():
+    return (gru_ops.gru_pair.launches, bip_ops.bipartite_round.launches,
+            wf_ops.waterfill_event.launches, wf_ops.masked_rowmin.launches)
+
+
+def _series_equal(a, b):
+    if a is None or b is None:
+        return a is b
+    return all(a[k].tobytes() == b[k].tobytes() for k in ("t", "ev")) and \
+        all(v.tobytes() == b["channels"][ch].tobytes()
+            for ch, v in a["channels"].items())
+
+
+@pytest.mark.parametrize("name", ["m4", "flowsim_fast"])
+@pytest.mark.parametrize("entry", ["run", "run_many", "probed run"])
+def test_captured_loop_equals_eager_bitwise(card, name, entry):
+    """The captured loop (one CUDA graph per arena shape, replayed) gives
+    the eager loop's FCTs and probe rings bitwise, and its replays count
+    the launches the eager loop makes: 2 GRU-pair and 1 GNN launch per m4
+    event, 1 water-filling per flowsim_fast event (+ 1 per stride hit)."""
+    from repro_torch.core import compiled
+    cfg = M4Config(**GATE)
+    backend = get_backend("m4", params=init_m4(0, cfg), cfg=cfg) \
+        if name == "m4" else get_backend("flowsim_fast")
+    reqs = [SimRequest.from_scenario(sample_scenario(s, num_flows=n))
+            for s, n in ((2, 60), (3, 45), (4, 50))]
+    if entry == "probed run":
+        # 120 events at stride 7: 17 replays of a 7-event graph, a tail
+        reqs = [_probed(reqs[0], stride=7)]
+    call = (lambda: backend.run_many(reqs)) if entry == "run_many" else \
+        (lambda: [backend.run(reqs[0])])
+    compiled.clear_compiled()
+    n0 = _launch_counts()
+    first = call()                     # captures
+    torch.cuda.synchronize()
+    n1 = _launch_counts()
+    again = call()                     # replays
+    torch.cuda.synchronize()
+    n2 = _launch_counts()
+    with compiled.eager():
+        eager = call()
+    torch.cuda.synchronize()
+    n3 = _launch_counts()
+    per_call = [b - a for a, b in zip(n0, n1)]
+    assert per_call == [b - a for a, b in zip(n1, n2)] == \
+        [b - a for a, b in zip(n2, n3)]
+    events = 2 * max(r.num_flows for r in reqs)
+    hits = -(-events // 7) if entry == "probed run" else 0
+    want = [2 * events, events, 0, 0] if name == "m4" else \
+        [0, 0, events + hits, 0]
+    assert per_call == want
+    for a, b, c in zip(first, again, eager):
+        assert a.fcts.tobytes() == b.fcts.tobytes() == c.fcts.tobytes()
+        assert _series_equal(a.probes, c.probes)
+        assert _series_equal(b.probes, c.probes)
+    (e,) = compiled.entries()
+    assert e["device"].startswith("cuda") and e["calls"] == 2
+    assert e["graphs"] == (["group", "tail"] if entry == "probed run"
+                           else ["event"])
+    assert e["pool_bytes"] > 0 and e["buffer_bytes"] > 0
+
+
+def test_capture_counts_once_per_shape(card):
+    from repro_torch.core import compiled
+    from repro_torch.core import flowsim_fast as tff
+    from repro_torch.runtime.guards import RetraceError, no_retrace
+    from repro_torch.scenarios import ScenarioSpec
+    backend = get_backend("flowsim_fast")
+    # one topology: the shape is the flow count alone
+    reqs = [ScenarioSpec(num_flows=n, seed=s).to_request()
+            for s, n in ((1, 40), (2, 40), (3, 41))]
+    compiled.clear_compiled()
+    c0 = dict(tff.TRACE_COUNTS)
+    with no_retrace(allowed=1):
+        backend.run(reqs[0])
+    with no_retrace(allowed=0):
+        backend.run(reqs[1])
+    assert tff.TRACE_COUNTS["event_scan"] == c0.get("event_scan", 0) + 1
+    with pytest.raises(RetraceError, match="event_scan: \\+1"):
+        with no_retrace(allowed=0):
+            backend.run(reqs[2])
+
+
+def test_service_captures_once_per_bucket(card):
+    """Two flushes of one flowsim_fast bucket on the card: one capture,
+    no budget broken, every result bitwise as run_many of its padded
+    batch."""
+    from repro_torch.core import compiled
+    from repro_torch.obs import get_registry
+    from repro_torch.scenarios import ScenarioSpec
+    from repro_torch.serve import ServeConfig, SimService
+    backend = get_backend("flowsim_fast")
+    reqs = [ScenarioSpec(num_flows=50, seed=s).to_request()
+            for s in range(4)]                  # one bucket
+    compiled.clear_compiled()
+    viol = get_registry().snapshot()["counters"].get(
+        "guards.no_retrace.violations", 0)
+    with SimService(backend, config=ServeConfig(batch_size=2)) as service:
+        got = []
+        for pair in (reqs[:2], reqs[2:]):
+            futs = [service.submit(r) for r in pair]
+            got += [f.result(timeout=300) for f in futs]
+        m = service.metrics()
+    assert m["compiles"] == 1 and m["batches"] == 2
+    assert m["isolated_retries"] == 0
+    assert get_registry().snapshot()["counters"].get(
+        "guards.no_retrace.violations", 0) == viol
+    direct = backend.run_many(reqs[:2]) + backend.run_many(reqs[2:])
+    for a, b in zip(got, direct):
+        assert a.fcts.tobytes() == b.fcts.tobytes()

@@ -3,8 +3,9 @@ import neither `jax` nor anything of the JAX package `repro`, nor
 `msgpack` or `zstandard`, which the machine with the card lacks (the
 port's checkpoints and blob store use its own codec, zlib and its own
 zstd decoder). The sweep engine, the training pipeline, the probes, the
-obs layer with its divergence observatory, and the CLIs' modules are
-among those imported."""
+obs layer with its divergence observatory, the compiled event loops,
+the simulation service, and the CLIs' modules are among those
+imported."""
 import ast
 import os
 import subprocess
@@ -41,7 +42,11 @@ MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.sim.closedloop",
            "repro_torch.obs", "repro_torch.obs.registry",
            "repro_torch.obs.trace", "repro_torch.obs.export",
            "repro_torch.obs.timeseries", "repro_torch.obs.torchprof",
-           "repro_torch.obs.diff", "repro_torch.obs.__main__"]
+           "repro_torch.obs.diff", "repro_torch.obs.__main__",
+           "repro_torch.core.compiled", "repro_torch.serve",
+           "repro_torch.serve.clock", "repro_torch.serve.metrics",
+           "repro_torch.serve.service", "repro_torch.serve.http",
+           "repro_torch.serve.__main__"]
 
 
 def _forbidden(name: str) -> bool:

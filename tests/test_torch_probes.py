@@ -38,6 +38,7 @@ from repro.scenarios import get_suite as jax_suite  # noqa: E402
 from repro.sim import SimRequest as JaxRequest  # noqa: E402
 from repro.sim import get_backend as jax_backend  # noqa: E402
 from repro_torch.core import probes as tpr  # noqa: E402
+from repro_torch.core.compiled import Program  # noqa: E402
 from repro_torch.core.model import M4Config  # noqa: E402
 from repro_torch.data.traffic import sample_scenario  # noqa: E402
 from repro_torch.net import FatTree, Flow, NetConfig  # noqa: E402
@@ -184,16 +185,24 @@ def test_record_writes_ring_slots_on_stride_hits():
     assert bufs["ev"].dtype == torch.int32 and (bufs["ev"] == -1).all()
     assert set(bufs) == {"t", "ev", "flow_rate"}
     assert bufs["flow_rate"].shape == (2, 3, 4)
-    calls = []
+    calls, k = [], [-1]
+    hits = torch.zeros((), dtype=torch.long)
 
-    def value(k):
-        calls.append(k)
-        return torch.full((2, 4), float(k))
-    for k in range(9):
-        tpr.record(p, bufs, k, torch.full((2,), k * 0.5),
-                   {"flow_rate": lambda k=k: value(k)})
+    def event():
+        k[0] += 1
+        return torch.full((2,), k[0] * 0.5)
+
+    def value():
+        calls.append(k[0])
+        return torch.full((2, 4), float(k[0]))
+    # the loops' programs: an event, its sample, stride - 1 more events
+    prog = Program(load=None, event=event, result=None, length=9,
+                   stride=p.stride, sample=lambda t: tpr.record(
+                       p, bufs, hits, t, {"flow_rate": value}))
+    assert prog.plan == [("group", 4), ("tail", 1)]
+    prog.run_eager()
     # the read-out runs on stride hits only
-    assert calls == [0, 2, 4, 6, 8]
+    assert calls == [0, 2, 4, 6, 8] and int(hits) == 5
     # hits 0..4 -> slots 0, 1, 2, 0, 1
     assert bufs["ev"].tolist() == [[6, 8, 4]] * 2
     assert bufs["flow_rate"][:, :, 0].tolist() == [[6.0, 8.0, 4.0]] * 2
