@@ -108,7 +108,26 @@ Phases, each printing one JSON line:
                  one epoch), run twice: the second a finished resume with
                  the same weights hash, all dataset and ground-truth
                  hits, and only the evaluation's m4 launching kernels;
-11. serve      — the simulation service at full width: SimService with
+11. fleet      — the fault-tolerant fleet on the card: smoke16 at
+                 SWEEP_FLOWS through SweepRunner(fleet=FleetConfig(
+                 workers=2)) at chunk FLEET_CHUNK = 4 (4 tasks), for m4
+                 at full width and for flowsim_fast, each into a fresh
+                 cache and against an in-process SweepRunner at the same
+                 chunk: cache bytes and entries bitwise, the workers'
+                 launches (brought back by `CountedJob`) equal to the
+                 in-process ones, the fingerprint `-kcuda`, 2 workers
+                 spawned, no JAX in a worker, and for m4 the two workers'
+                 tasks overlapping in time (two CUDA contexts launching
+                 the GNN at once); flowsim_fast under FLEET_CHAOS (kills,
+                 a corrupt blob, a transient OSError) converging bitwise
+                 to the clean fleet's cache; a relaunch that spawns 0
+                 and a re-run all hits; m4 with diff_against=flowsim_fast
+                 over the cache holding the oracle's entries, traced: 16
+                 divergence stamps over 4 tasks and `python -m
+                 repro_torch.obs --check --coord` exit 0. Walls, each
+                 worker's spawn-to-first-claim and first-task times, the
+                 FleetMetrics dicts;
+12. serve      — the simulation service at full width: SimService with
                  lanes m4 (batch 8) and flowsim_fast (batch 4) behind the
                  HTTP front-end on an ephemeral port; 4 client threads,
                  each with its 8 requests in flight at once, post
@@ -123,11 +142,14 @@ Phases, each printing one JSON line:
                  captures). Requests/s, p50/p99 latency and queue delay.
 
 Then the `kernels` line (each kernel's launches on the full-size `run`,
-on the probed `run`s, in the train phase's evaluation, in the sweeps and
-in the serve phase's first round), the card's nvidia-smi line, and last
+on the probed `run`s, in the train phase's evaluation, in the sweeps, in
+the workers of the fleet phase's two clean fleets and in the serve
+phase's first round), the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits nonzero and prints no result; so it does with no CUDA device, or
-when run outside the repository. Imports nothing of JAX.
+when run outside the repository. Imports nothing of JAX. The fleet's
+spawned workers import this file as `__mp_main__`, so everything that
+runs work stays under the `__main__` check.
 """
 from __future__ import annotations
 
@@ -157,6 +179,11 @@ PROBE_SAMPLES = 256    # ... into a ring of 256, which wraps at 2000 flows
 PROBE_RTOL = 1e-5      # a batched series against its scenario's own run
 SERVE_FLOWS = (500, 2000)  # serve phase: one shape bucket per flow count
 SERVE_UNIQUE = 8           # ... holding 8 unique specs each
+FLEET_CHUNK = 4            # fleet phase: smoke16 in 4 tasks of 4 specs
+# a worker-targeted fault fires only in a worker that claims a task, so
+# the kill targets both workers of the pool: the first to claim dies
+FLEET_CHAOS = ("kill:worker=0,after=1;kill:worker=1,after=1;"
+               "corrupt:task=1;raise:task=2,exc=oserror,times=1")
 
 
 def emit(phase, **kw):
@@ -568,24 +595,80 @@ def phase_event(torch, np, dev, req):
     return entry
 
 
-def run_counted(torch, fn):
-    """Drive fn with every launch counter at 0; return its result, the
-    counts it made and its wall time (synchronised)."""
+def launch_counters():
+    """The four kernel wrappers, by the names of the `kernels` line."""
     from repro_torch.kernels.bipartite.ops import bipartite_round
     from repro_torch.kernels.fused_gru.ops import gru_pair
     from repro_torch.kernels.waterfill.ops import (masked_rowmin,
                                                    waterfill_event)
+    return {"fused_gru_pair": gru_pair, "bipartite_round": bipartite_round,
+            "masked_rowmin": masked_rowmin,
+            "waterfill_event": waterfill_event}
+
+
+def run_counted(torch, fn):
+    """Drive fn with every launch counter at 0; return its result, the
+    counts it made and its wall time (synchronised)."""
+    counters = launch_counters()
     torch.cuda.synchronize()
-    gru_pair.launches = bipartite_round.launches = 0
-    masked_rowmin.launches = waterfill_event.launches = 0
+    for f in counters.values():
+        f.launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return out, {"fused_gru_pair": gru_pair.launches,
-                 "bipartite_round": bipartite_round.launches,
-                 "masked_rowmin": masked_rowmin.launches,
-                 "waterfill_event": waterfill_event.launches}, wall
+    return out, {k: f.launches for k, f in counters.items()}, wall
+
+
+class CountedJob:
+    """A fleet job that runs `inner` (a `SweepJob`) and appends one JSON
+    line per task it ran to `<out_dir>/<pid>.jsonl`: the kernel launches
+    the task made in its worker process, the seconds the worker took to
+    build its backend (CUDA context, weights onto the card) before its
+    first task, the task's wall, and the top-level packages of JAX or
+    of the JAX package in the worker's `sys.modules`. It lives at module
+    level because spawned workers unpickle it from this file, which
+    they import as `__mp_main__`."""
+
+    def __init__(self, inner, out_dir):
+        self.inner, self.out_dir = inner, out_dir
+
+    @property
+    def device(self):
+        return self.inner.device
+
+    def run(self, payload):
+        import torch
+        t0 = time.time()
+        first = getattr(self.inner, "_backend_obj", None) is None
+        self.inner._backend()
+        t1 = time.time()
+        counters = launch_counters()
+        before = {k: f.launches for k, f in counters.items()}
+        self.inner.run(payload)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        rec = {"pid": os.getpid(), "first": first, "t_start": t0,
+               "backend_s": t1 - t0, "run_s": t2 - t1, "t_end": t2,
+               "keys": list(payload["keys"]),
+               "launches": {k: f.launches - before[k]
+                            for k, f in counters.items()},
+               "jax_modules": sorted({m.split(".")[0] for m in sys.modules
+                                      if m.split(".")[0] in
+                                      ("jax", "jaxlib", "repro")})}
+        os.makedirs(self.out_dir, exist_ok=True)
+        with open(os.path.join(self.out_dir, f"{os.getpid()}.jsonl"),
+                  "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    def verify(self, payload):
+        return self.inner.verify(payload)
+
+    def result_paths(self, payload):
+        return self.inner.result_paths(payload)
+
+    def done_extra(self, payload):
+        return self.inner.done_extra(payload)
 
 
 def launches(gru=0, gnn=0, rowmin=0, event=0):
@@ -1450,6 +1533,268 @@ def phase_sweep(torch, np, m4, fs, params, cfg, smi):
     return total
 
 
+def fleet_records(out_dir):
+    """The lines `CountedJob` wrote in the workers, oldest first."""
+    recs = []
+    if os.path.isdir(out_dir):
+        for name in sorted(os.listdir(out_dir)):
+            with open(os.path.join(out_dir, name)) as f:
+                recs += [json.loads(ln) for ln in f if ln.strip()]
+    return sorted(recs, key=lambda r: r["t_start"])
+
+
+def sum_launches(recs):
+    total = launches()
+    for r in recs:
+        for k, v in r["launches"].items():
+            total[k] += v
+    return total
+
+
+def task_overlap_s(recs):
+    """Seconds in which two or more workers were inside a task at once
+    (a worker runs one task at a time, so its own windows never
+    overlap)."""
+    edges = sorted([(r["t_start"], 1) for r in recs]
+                   + [(r["t_end"], -1) for r in recs])
+    both, active, last = 0.0, 0, None
+    for t, step in edges:
+        if active >= 2:
+            both += t - last
+        active, last = active + step, t
+    return both
+
+
+def cache_bytes(np, cache_dir, keys):
+    """FCT and slowdown bytes (float64, as cached) of every key."""
+    from repro_torch.scenarios.cache import ResultCache
+    store = ResultCache(cache_dir)
+    out = {}
+    for k in keys:
+        res = store.get(k)
+        if res is None:
+            raise AssertionError(f"fleet: no entry {k[:12]} in {cache_dir}")
+        out[k] = (np.asarray(res.fcts, np.float64).tobytes(),
+                  np.asarray(res.slowdowns, np.float64).tobytes())
+    return out
+
+
+def worker_timings(trace_dir, recs):
+    """Per worker of a traced fleet run, seconds from the start of the
+    run (which spawns the whole pool at once): to the worker's entry
+    (interpreter, torch and the port imported, the job unpickled), to
+    its first claim, and to the end of its first task; with the seconds
+    its first task spent building the backend (CUDA context, weights
+    onto the card) and then running (graph captures included)."""
+    from repro_torch.obs.trace import read_spans
+    spans = read_spans(trace_dir)
+    t0 = min(s["t_start"] for s in spans if s["name"] == "fleet.run")
+    out = {}
+    for s in sorted(spans, key=lambda s: s["t_start"]):
+        proc = s.get("proc", "")
+        if not proc.startswith("fleet-w"):
+            continue
+        w = out.setdefault(proc, {"pid": s["pid"], "tasks": 0})
+        if s["name"] == "fleet.worker":
+            w["spawn_to_entry_s"] = s["t_start"] - t0
+        elif s["name"] == "fleet.claim":
+            w.setdefault("spawn_to_first_claim_s", s["t_start"] - t0)
+        elif s["name"] == "fleet.task":
+            w["tasks"] += 1
+            w.setdefault("spawn_to_first_task_end_s", s["t_end"] - t0)
+    for w in out.values():
+        first = [r for r in recs if r["pid"] == w["pid"] and r["first"]]
+        if first:
+            w["first_task_backend_s"] = first[0]["backend_s"]
+            w["first_task_run_s"] = first[0]["run_s"]
+    return out
+
+
+def phase_fleet(torch, np, m4, fs, smi):
+    """The fault-tolerant fleet on the card: smoke16 at SWEEP_FLOWS
+    through SweepRunner(fleet=FleetConfig(workers=2)) at chunk
+    FLEET_CHUNK, for m4 at full width and for flowsim_fast, each against
+    an in-process SweepRunner at the same chunk (cache bytes bitwise,
+    launches equal); flowsim_fast again under FLEET_CHAOS, converging to
+    the clean run's cache; a relaunch that spawns nothing; and m4 with
+    diff_against=flowsim_fast over the cache holding the oracle's
+    entries, traced, then `python -m repro_torch.obs --check --coord`.
+    The workers' launches come back through `CountedJob`. Returns the
+    launches of the two clean fleets' workers."""
+    import tempfile
+    from unittest import mock
+    import repro_torch.fleet as fleet_pkg
+    from repro_torch.fleet import (FleetConfig, parse_plan, run_fleet,
+                                   sweep_job_for, sweep_tasks)
+    from repro_torch.obs import configure
+    from repro_torch.obs.diff import divergence_from_coord
+    from repro_torch.scenarios import SweepRunner, get_suite
+    from repro_torch.scenarios.cache import result_key
+
+    t_phase = time.perf_counter()
+    sweep = get_suite("smoke16", num_flows=SWEEP_FLOWS)
+    specs = list(sweep)
+    reqs = [spec.to_request() for spec in specs]
+    # sweep_tasks sorts by footprint, as run_chunked does
+    order = sorted(reqs, key=lambda r: (r.num_flows, r.topo.num_links))
+    chunks = [order[i:i + FLEET_CHUNK]
+              for i in range(0, len(order), FLEET_CHUNK)]
+    batched = sum(2 * max(r.num_flows for r in c) for c in chunks)
+    real_job_for = fleet_pkg.sweep_job_for
+    total = launches()
+    with tempfile.TemporaryDirectory() as work:
+        def path(*parts):
+            return os.path.join(work, *parts)
+
+        def config(tag, **kw):
+            return FleetConfig(workers=2, coord_dir=path("coord", tag),
+                               chunk_timeout_s=300.0, **kw)
+
+        def fleet_run(runner, tag):
+            """runner.run(sweep) with its fleet's jobs wrapped in
+            CountedJob; the tracer the fleet configured is undone."""
+            wrap = mock.patch.object(
+                fleet_pkg, "sweep_job_for", lambda *a, **kw: CountedJob(
+                    real_job_for(*a, **kw), path("counts", tag)))
+            try:
+                with wrap:
+                    t0 = time.perf_counter()
+                    rep = runner.run(sweep)
+                    wall = time.perf_counter() - t0
+            finally:
+                configure(None)
+                os.environ.pop("REPRO_TRACE_DIR", None)
+            recs = fleet_records(path("counts", tag))
+            jax_mods = sorted({m for r in recs for m in r["jax_modules"]})
+            m = rep.fleet
+            if m is None or not (m["done"] == m["accounted"] == m["total"]
+                                 == len(chunks)) or m["poisoned"] or \
+                    m["workers_spawned"] < 2 or rep.misses != len(specs) \
+                    or jax_mods:
+                raise AssertionError(f"fleet {tag}: metrics {m}, misses "
+                                     f"{rep.misses}, worker imports "
+                                     f"{jax_mods}")
+            return rep, wall, recs
+
+        keys = {}
+        for name, backend, per_event in (
+                ("m4", m4, launches(2, 1)),
+                ("flowsim_fast", fs, launches(event=1))):
+            keys[name] = [result_key(r, backend) for r in reqs]
+            inline = SweepRunner(backend, cache_dir=path("inline", name),
+                                 chunk_size=FLEET_CHUNK)
+            ref, ref_counts, ref_wall = run_counted(
+                torch, lambda: inline.run(sweep))
+            trace = path("trace", name)
+            runner = SweepRunner(backend, cache_dir=path("fleet", name),
+                                 chunk_size=FLEET_CHUNK,
+                                 fleet=config(name, trace_dir=trace))
+            rep, wall, recs = fleet_run(runner, name)
+            counts = sum_launches(recs)
+            want = {k: v * batched for k, v in per_event.items()}
+            same = cache_bytes(np, path("fleet", name), keys[name]) == \
+                cache_bytes(np, path("inline", name), keys[name])
+            same_entries = all(
+                np.asarray(a.result.fcts, np.float64).tobytes()
+                == np.asarray(b.result.fcts, np.float64).tobytes()
+                and np.asarray(a.result.slowdowns, np.float64).tobytes()
+                == np.asarray(b.result.slowdowns, np.float64).tobytes()
+                for a, b in zip(rep.entries, ref.entries))
+            fp = backend.fingerprint()
+            # m4: two processes, each with its own CUDA context and its
+            # own copy of the GNN's grid-barrier count, launch on the card
+            # at once; their results are the in-process ones bitwise
+            overlap = task_overlap_s(recs)
+            if not (same and same_entries) or not fp.endswith("-kcuda") \
+                    or not counts == ref_counts == want or \
+                    (name == "m4" and overlap <= 0.0):
+                raise AssertionError(
+                    f"fleet {name}: bitwise {same}/{same_entries}, "
+                    f"fingerprint {fp}, launches {counts} (in-process "
+                    f"{ref_counts}, expected {want}), workers' tasks "
+                    f"overlapped {overlap} s")
+            for k, v in counts.items():
+                total[k] += v
+            emit("fleet", path=name, suite="smoke16", specs=len(specs),
+                 chunk_size=FLEET_CHUNK, tasks=len(chunks), workers=2,
+                 wall_s=wall, simulate_s=rep.simulate_s,
+                 inprocess_wall_s=ref_wall,
+                 inprocess_simulate_s=ref.simulate_s, batched_events=batched,
+                 metrics=rep.fleet, worker_timings=worker_timings(trace, recs),
+                 task_records=[{k: r[k] for k in ("pid", "first", "backend_s",
+                                                  "run_s")} for r in recs],
+                 task_overlap_s=overlap, launches=counts,
+                 inprocess_launches=ref_counts, bitwise_inprocess=True,
+                 fingerprint=fp, card=smi)
+
+        # ---- chaos: flowsim_fast under the fault plan, into a fresh cache
+        chaos_cfg = config("chaos", chaos=parse_plan(FLEET_CHAOS))
+        runner = SweepRunner(fs, cache_dir=path("chaos"),
+                             chunk_size=FLEET_CHUNK, fleet=chaos_cfg)
+        rep, wall, recs = fleet_run(runner, "chaos")
+        m = rep.fleet
+        same = cache_bytes(np, path("chaos"), keys["flowsim_fast"]) == \
+            cache_bytes(np, path("fleet", "flowsim_fast"),
+                        keys["flowsim_fast"])
+        quarantined = sum(n.endswith(".corrupt")
+                          for _, _, ns in os.walk(path("chaos")) for n in ns)
+        if not same or m["worker_restarts"] < 1 or m["retried"] < 1 or \
+                quarantined != 1:
+            raise AssertionError(f"fleet chaos: bitwise {same}, metrics "
+                                 f"{m}, quarantined {quarantined}")
+        emit("fleet", path="chaos", plan=FLEET_CHAOS, wall_s=wall,
+             metrics=m, launches=sum_launches(recs), bitwise_clean=True,
+             quarantined=quarantined, card=smi)
+
+        # ---- relaunch: the same fleet over the same cache and
+        # coordination directory, then the same runner
+        tasks = sweep_tasks(specs, reqs, keys["flowsim_fast"], FLEET_CHUNK)
+        t0 = time.perf_counter()
+        again = run_fleet(tasks, sweep_job_for(fs, path("chaos")), chaos_cfg)
+        relaunch_wall = time.perf_counter() - t0
+        rerun, re_counts, re_wall = run_counted(torch,
+                                                lambda: runner.run(sweep))
+        if again.workers_spawned != 0 or again.computed != 0 or \
+                again.already_done != len(chunks) or \
+                rerun.hits != len(specs) or rerun.fleet is not None or \
+                re_counts != launches():
+            raise AssertionError(f"fleet relaunch: {again.as_dict()}, "
+                                 f"hits {rerun.hits}, launches {re_counts}")
+        emit("fleet", path="relaunch", wall_s=relaunch_wall,
+             metrics=again.as_dict(), runner_wall_s=re_wall,
+             runner_hits=rerun.hits, launches=re_counts, card=smi)
+
+        # ---- diff_against: m4 over the cache of flowsim_fast's entries
+        trace = path("trace", "diff")
+        runner = SweepRunner(m4, cache_dir=path("fleet", "flowsim_fast"),
+                             chunk_size=FLEET_CHUNK, diff_against=fs,
+                             fleet=config("diff", trace_dir=trace))
+        rep, wall, recs = fleet_run(runner, "diff")
+        div = divergence_from_coord(path("coord", "diff"))
+        same = cache_bytes(np, path("fleet", "flowsim_fast"), keys["m4"]) \
+            == cache_bytes(np, path("fleet", "m4"), keys["m4"])
+        check = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs", "--dir", trace,
+             "--check", "--coord", path("coord", "diff")],
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            capture_output=True, text=True, timeout=300)
+        if div["tasks"] != len(chunks) or \
+                set(div["scenarios"]) != {s.label for s in specs} or \
+                not all(np.isfinite(v) for v in div["scenarios"].values()) \
+                or not same or check.returncode != 0:
+            raise AssertionError(f"fleet diff_against: divergence {div}, "
+                                 f"bitwise {same}, obs check rc "
+                                 f"{check.returncode}: {check.stdout}")
+        emit("fleet", path="diff_against", oracle=fs.fingerprint(),
+             wall_s=wall, metrics=rep.fleet, divergence=div,
+             worker_timings=worker_timings(trace, recs),
+             task_overlap_s=task_overlap_s(recs),
+             launches=sum_launches(recs), bitwise_clean_m4=True,
+             obs_check=check.stdout.strip().splitlines()[-1], card=smi)
+    emit("fleet", step="phase", seconds=time.perf_counter() - t_phase)
+    return total
+
+
 def serve_specs(n_unique, flows):
     """`n_unique` Table-2 specs (`random_spec`, the scenarios of
     `sample_scenario`) on the 8-rack fat tree at 4-to-1 (80 links), at
@@ -1682,6 +2027,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     smi = smi.splitlines()[0]
+    t_script = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     card = {"name": kind, "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda}
@@ -1757,6 +2103,7 @@ def main() -> int:
     emit("train", step="phase", seconds=time.perf_counter() - t0)
 
     sweep_launches = phase_sweep(torch, np, m4, fs, params, cfg, smi)
+    fleet_launches = phase_fleet(torch, np, m4, fs, smi)
     serve_launches = phase_serve(torch, np, params, cfg, smi)
 
     sources = {"fused_gru_pair": ("src/repro_torch/kernels/csrc/fused_gru.cu",
@@ -1775,7 +2122,9 @@ def main() -> int:
                      "probes_launches": probes_launches[name],
                      "train_eval_launches": eval_launches[name],
                      "sweep_launches": sweep_launches[name],
+                     "fleet_launches": fleet_launches[name],
                      "serve_launches": serve_launches[name], **e})
+    emit("total", seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

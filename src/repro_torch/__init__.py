@@ -27,8 +27,12 @@ reference it is held against, but imports nothing of it (nor `jax`):
     repro_torch.serve      SimService: dynamic batching into shape
                            buckets, coalescing, backpressure, an HTTP
                            front-end (python -m repro_torch.serve)
-    repro_torch.runtime    checkpoints, blob store, zstd reader, guards
-                           (no_retrace)
+    repro_torch.fleet      supervised spawn workers for sweeps and dataset
+                           builds: leases, retry, poison, reaping, chaos
+                           plans (python -m repro_torch.fleet)
+    repro_torch.runtime    checkpoints, blob store and leases, zstd
+                           reader, guards (no_retrace), fault-tolerance
+                           policies
     repro_torch.weights    the bridge from a JAX parameter tree
 
 Entry points:

@@ -4,6 +4,7 @@
     python -m repro_torch.obs --dir results/obs_trace --trace <id>
     python -m repro_torch.obs --dir results/obs_trace --flame
     python -m repro_torch.obs --dir results/obs_trace --check
+    python -m repro_torch.obs --dir results/obs_trace --check --coord DIR
     python -m repro_torch.obs --merge snapA.json snapB.json [--prom]
 
 The port of `python -m repro.obs`; it reads span, series and snapshot
@@ -13,8 +14,11 @@ direct children must not overlap nor sum to more than the root wall.
 Probe time-series files (``*.probes.jsonl``, written by probed runs /
 `repro_torch.obs.diff`) found under ``--dir`` are structurally validated
 by ``--check`` and summarized by ``--flame``; a directory holding only
-probe files is valid without spans. (The JAX package's ``--coord``, which
-stitches fleet tasks into their traces, waits for the port's fleet.)
+probe files is valid without spans. With ``--coord DIR`` it also
+stitches fleet tasks into their traces: every task marked done under the
+coordination directory needs a closed ``fleet.task`` root span (its trace
+id is `task_trace_id` of the task id) with an attempt that ended
+``status=done``.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import Dict, List, Optional
 
 from .export import to_prometheus
 from .registry import merge_snapshots
-from .trace import read_spans, spans_by_trace
+from .trace import read_spans, spans_by_trace, task_trace_id
 
 _EPS = 2e-3  # seconds of cross-thread clock slack tolerated by --check
 
@@ -147,7 +151,21 @@ def cmd_flame(spans: List[dict], dirpath: Optional[str] = None) -> int:
     return 0
 
 
-def cmd_check(spans: List[dict], dirpath: Optional[str] = None) -> int:
+def _done_task_ids(coord: str) -> List[str]:
+    """Task ids marked done under a coord dir (searched recursively, so
+    a parent dir covering several fleet digests works too)."""
+    out = []
+    for dirpath, _dirnames, filenames in os.walk(coord):
+        if os.path.basename(dirpath) != "done":
+            continue
+        for fname in filenames:
+            if fname.endswith(".json"):
+                out.append(fname[:-len(".json")])
+    return sorted(set(out))
+
+
+def cmd_check(spans: List[dict], coord: Optional[str],
+              dirpath: Optional[str] = None) -> int:
     problems: List[str] = []
     probe_files = _probe_files(dirpath)
     traces = spans_by_trace(spans)
@@ -195,15 +213,32 @@ def cmd_check(spans: List[dict], dirpath: Optional[str] = None) -> int:
                     f"trace {tid}: children sum {child_sum * 1e3:.2f}ms "
                     f"> root {root.get('name')} wall "
                     f"{(r1 - r0) * 1e3:.2f}ms")
+    if coord:
+        done = _done_task_ids(coord)
+        if not done:
+            problems.append(f"coord {coord}: no done tasks found")
+        for task_id in done:
+            tid = task_trace_id(task_id)
+            recs = traces.get(tid, [])
+            roots = [r for r in _roots(recs) if r.get("name") == "fleet.task"]
+            if not roots:
+                problems.append(
+                    f"task {task_id[:16]}: no closed fleet.task root "
+                    f"span (trace {tid})")
+            elif not any(r.get("status") == "done" for r in roots):
+                problems.append(
+                    f"task {task_id[:16]}: no fleet.task attempt "
+                    f"ended with status=done")
     if problems:
         print(f"obs check: {len(problems)} problem(s)")
         for p in problems:
             print(f"  FAIL {p}")
         return 1
+    n_done = len(_done_task_ids(coord)) if coord else 0
     print(f"obs check: OK ({len(traces)} traces, "
           f"{sum(len(v) for v in traces.values())} spans"
           + (f", {len(probe_files)} probe series" if probe_files else "")
-          + ")")
+          + (f", {n_done} done tasks stitched" if coord else "") + ")")
     return 0
 
 
@@ -237,6 +272,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="per-span-name flame summary")
     ap.add_argument("--check", action="store_true",
                     help="validate span structure; nonzero exit on problems")
+    ap.add_argument("--coord", metavar="DIR",
+                    help="with --check: require a closed fleet.task root "
+                         "for every done task under this coord dir")
     ap.add_argument("--merge", nargs="+", metavar="SNAP",
                     help="merge repro.obs/1 snapshot JSON files")
     ap.add_argument("--prom", action="store_true",
@@ -252,7 +290,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.flame:
         return cmd_flame(spans, args.dir)
     if args.check:
-        return cmd_check(spans, args.dir)
+        return cmd_check(spans, args.coord, args.dir)
     return cmd_list(spans)
 
 

@@ -16,9 +16,10 @@ in one cluster even across families). The ranked report (schema
 ``repro.obs.diff/1``, the JAX package's) round-trips through JSON and
 re-materializes its worst scenarios as a suite (`worst_suite`; the
 scenarios registry's ``divergence_worst`` reads the same file), so
-training can oversample exactly where the model is wrong. The JAX
-package's fleet side (`divergence_from_coord`, `SweepJob.diff_against`)
-waits for the port's fleet.
+training can oversample exactly where the model is wrong. Fleet runs
+stamp per-scenario divergence into their done markers
+(`SweepJob.diff_against`); `divergence_from_coord` aggregates a
+coordination directory (of either package) back into one survey.
 
 CLI (m4 and flowsim_fast on the card unless ``--device cpu``)::
 
@@ -46,7 +47,8 @@ _PCTS = (50, 90, 99)
 __all__ = [
     "SCHEMA_DIFF", "DivergenceProfile", "flow_rel_err", "profile_scenario",
     "rank_families", "cluster_profiles", "diff_sweep", "build_report",
-    "write_report", "read_report", "worst_suite", "main",
+    "write_report", "read_report", "worst_suite", "divergence_from_coord",
+    "main",
 ]
 
 
@@ -306,6 +308,39 @@ def diff_sweep(suite, backend, oracle, *, cache_dir: Optional[str] = None,
                  "flow-pooled mean relative FCT error vs the oracle")
     report["obs"] = reg.snapshot()
     return report
+
+
+# ------------------------------------------------------ fleet aggregation
+def divergence_from_coord(coord: str) -> dict:
+    """Aggregate the per-scenario divergence that `SweepJob.diff_against`
+    stamped into fleet done markers under `coord` (searched recursively,
+    like ``repro_torch.obs --check --coord``)."""
+    scenarios: Dict[str, float] = {}
+    tasks = 0
+    for dirpath, _dirnames, filenames in os.walk(coord):
+        if os.path.basename(dirpath) != "done":
+            continue
+        for fname in sorted(filenames):
+            if not fname.endswith(".json"):
+                continue
+            try:
+                with open(os.path.join(dirpath, fname)) as fh:
+                    rec = json.load(fh)
+            except (OSError, ValueError):
+                continue
+            div = rec.get("divergence")
+            if not isinstance(div, dict):
+                continue
+            tasks += 1
+            for label, v in div.items():
+                scenarios[label] = float(v)
+    vals = list(scenarios.values())
+    return {
+        "tasks": tasks,
+        "scenarios": dict(sorted(scenarios.items())),
+        "mean_rel_err": round(float(np.mean(vals)), 6) if vals else 0.0,
+        "worst_scenario": max(scenarios, key=scenarios.get) if vals else "",
+    }
 
 
 # --------------------------------------------------------------------- CLI

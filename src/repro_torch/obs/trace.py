@@ -13,9 +13,9 @@ that never close, so a process killed mid-span leaves no root span.
 ``REPRO_TRACE_DIR`` switches tracing on in child processes (they inherit
 ``os.environ``); ``REPRO_TRACE_PARENT`` = ``"<trace_id>:<span_id>"``
 makes the child's top-level spans children of a parent-process span.
-:func:`task_trace_id` gives the deterministic trace ids the JAX
-package's fleet gives its tasks, so every retry of a task shares one
-trace.
+:func:`task_trace_id` gives a fleet task (`repro_torch.fleet`, as the
+JAX package's fleet does) its deterministic trace id, so every retry of
+a task shares one trace.
 
 Tracing is opt-in. With no trace dir configured the tracer hands out a
 shared no-op span: no I/O, no id generation and no timestamping.

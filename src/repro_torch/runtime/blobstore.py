@@ -1,6 +1,8 @@
-"""Content-addressed blob store: the machinery behind the training
-dataset store (`repro_torch.train.DatasetStore`), and the compression of
-the checkpoints (`repro_torch.runtime.checkpoint`).
+"""Content-addressed blob store: the machinery behind the sweep result
+cache (`repro_torch.scenarios.ResultCache`), the training dataset store
+(`repro_torch.train.DatasetStore`), the compression of the checkpoints
+(`repro_torch.runtime.checkpoint`), and, with `LeaseDir`, the fleet's
+coordination spine (`repro_torch.fleet`).
 
 A copy of what the port needs of `repro.runtime.blobstore`: the layout
 `<root>/<key[:2]>/<key>.msgpack.z`, the integrity envelope (a 4-byte magic
@@ -13,15 +15,23 @@ where `zstandard` is not installed. A zstd blob, which the JAX package
 writes where `zstandard` is installed, reads through the port's own
 decoder (`runtime.zstd`), never the `zstandard` package. Subclasses
 define only the payload codec (`_encode`/`_decode`).
+
+`LeaseDir` is the JAX package's lease files, the same files and bodies:
+an O_CREAT|O_EXCL claim carrying the owner id, liveness by heartbeat
+mtime. Leases keep two workers from computing one chunk; they are not
+what makes a result right (blob writes are content-addressed and
+atomic, so a broken lease costs duplicate work writing the same bytes).
 """
 from __future__ import annotations
 
 import hashlib
+import json
 import logging
 import os
 import tempfile
+import time
 import zlib
-from typing import Optional
+from typing import List, Optional
 
 from .codec import packb, unpackb
 from .zstd import ZSTD_MAGIC
@@ -124,3 +134,80 @@ class BlobStore:
                 pass
             raise
         return path
+
+
+class LeaseDir:
+    """Atomic lease files for claiming work (`repro_torch.fleet`).
+
+    A lease is one file `<root>/<task_id>.lease` created with
+    O_CREAT|O_EXCL (the filesystem picks exactly one winner per task),
+    whose JSON body names the owner (worker id, pid, claim time) and
+    whose mtime is the owner's heartbeat: a holder `heartbeat()`s while
+    it runs the chunk, and a supervisor treats `age() > timeout` as a
+    dead or wedged owner and breaks the lease. The body is written
+    through the O_EXCL descriptor, and losers never touch the file.
+    """
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def _path(self, task_id: str) -> str:
+        return os.path.join(self.root, task_id + ".lease")
+
+    def claim(self, task_id: str, owner: str,
+              meta: Optional[dict] = None) -> bool:
+        """Try to claim `task_id` for `owner`; True iff we won the file.
+        `meta` (JSON-able) is merged into the body: fleet workers carry
+        their trace and span ids there."""
+        os.makedirs(self.root, exist_ok=True)
+        try:
+            fd = os.open(self._path(task_id),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            return False
+        body = {"owner": owner, "pid": os.getpid(), "t_claim": time.time()}
+        if meta:
+            body.update(meta)
+        with os.fdopen(fd, "w") as f:
+            json.dump(body, f)
+        return True
+
+    def heartbeat(self, task_id: str):
+        """Refresh the lease mtime (no-op if the lease was broken)."""
+        try:
+            os.utime(self._path(task_id))
+        except OSError:
+            pass
+
+    def release(self, task_id: str):
+        try:
+            os.remove(self._path(task_id))
+        except OSError:
+            pass
+
+    def owner(self, task_id: str) -> Optional[dict]:
+        """The claim body ({owner, pid, t_claim, ...}), or None if
+        unclaimed (or claimed so recently the body isn't visible yet)."""
+        try:
+            with open(self._path(task_id)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def age(self, task_id: str) -> Optional[float]:
+        """Seconds since the last heartbeat, or None if unclaimed."""
+        try:
+            return time.time() - os.path.getmtime(self._path(task_id))
+        except OSError:
+            return None
+
+    def held(self, task_id: str) -> bool:
+        return os.path.exists(self._path(task_id))
+
+    def active(self) -> List[str]:
+        """Task ids of every lease currently on disk."""
+        try:
+            names = os.listdir(self.root)
+        except OSError:
+            return []
+        return [n[:-len(".lease")] for n in names if n.endswith(".lease")]

@@ -1,6 +1,6 @@
 """SweepRunner — execute a suite of scenarios through one backend.
 
-The port of `repro.scenarios.runner`, in-process: take N declarative
+The port of `repro.scenarios.runner`: take N declarative
 scenarios, materialize them, serve the cache hits, partition the misses
 into shape-compatible chunks and push each chunk through
 `Backend.run_chunked` -> `run_many`, where `m4` and `flowsim_fast` pad
@@ -13,11 +13,11 @@ obs phase ``sweep.simulate`` (a span when tracing is on, and
 Each chunk is one `run_many`, so at most one compiled program
 (`repro_torch.core.compiled`): the misses run under
 `no_retrace(allowed=chunks)`, which raises `RetraceError` if a shape or
-a static option varied mid-sweep.
-
-What the JAX runner has and this one has not yet: a fleet of worker
-processes (`fleet=`) and divergence stamping (`diff_against=`), which
-wait for the port's fleet.
+a static option varied mid-sweep. With `fleet=FleetConfig(...)` the
+misses go to supervised worker processes instead (`repro_torch.fleet`),
+chunked the same way, so the cache ends bitwise as an in-process run
+leaves it; `diff_against=` stamps each fleet task's done marker with
+per-scenario divergence from an oracle's cached results.
 """
 from __future__ import annotations
 
@@ -37,10 +37,12 @@ from .spec import ScenarioSpec, Sweep
 
 @dataclass
 class SweepEntry:
-    """One scenario's outcome inside a sweep."""
+    """One scenario's outcome inside a sweep. `result` is None only for
+    scenarios whose fleet chunk was poisoned (quarantined after a
+    deterministic failure — see `SweepReport.fleet`)."""
     spec: ScenarioSpec
     request: SimRequest
-    result: SimResult
+    result: Optional[SimResult]
     cached: bool      # True -> served from the on-disk result cache
 
 
@@ -51,7 +53,9 @@ class SweepReport:
     backend: str
     entries: List[SweepEntry]
     wall_time: float      # end-to-end runner time (incl. flow generation)
-    simulate_s: float = 0.0   # wall time of the misses' run_chunked
+    simulate_s: float = 0.0   # wall time of the misses' run_chunked (or
+    #                           of their fleet run)
+    fleet: Optional[dict] = None   # FleetMetrics.as_dict() of a fleet run
 
     @property
     def hits(self) -> int:
@@ -67,13 +71,14 @@ class SweepReport:
         """Per-scenario summary rows (what the CLI table prints)."""
         out = []
         for e in self.entries:
-            s = e.result.slowdowns
+            s = e.result.slowdowns if e.result is not None else []
             out.append({
                 "scenario": e.spec.label,
                 "workload": e.spec.workload,
                 "flows": e.request.num_flows,
                 "cached": e.cached,
-                "wall_s": e.result.wall_time,
+                "wall_s": e.result.wall_time if e.result is not None
+                else float("nan"),
                 "sldn_mean": float(np.nanmean(s)) if len(s) else float("nan"),
                 "sldn_p99": float(np.nanpercentile(s, 99)) if len(s)
                 else float("nan"),
@@ -109,13 +114,31 @@ class SweepRunner:
     the whole sweep as a single chunk. cache_dir=None disables caching
     (timing runs should disable it — a cache hit reports the *cached*
     wall time, not a re-measurement).
+
+    fleet=FleetConfig(...) shards cache misses across supervised worker
+    processes (`repro_torch.fleet`) instead of running them in-process:
+    workers claim chunks via lease files, write through this runner's
+    cache, and survive crashes, stragglers and poison chunks. Fleet mode
+    requires a cache_dir (the cache *is* the result channel) and keeps
+    the chunking of `run_chunked`, so fleet and in-process runs of the
+    same sweep fill identical cache entries. On the card each worker
+    has its own CUDA context on the same card.
     """
 
     def __init__(self, backend, *, cache_dir: Optional[str] = None,
-                 chunk_size: Optional[int] = 8):
+                 chunk_size: Optional[int] = 8, fleet=None,
+                 diff_against=None):
+        if fleet is not None and cache_dir is None:
+            raise ValueError("fleet mode needs a cache_dir: workers hand "
+                             "results back through the result cache")
         self.backend = backend
         self.cache = ResultCache(cache_dir) if cache_dir else None
         self.chunk_size = chunk_size
+        self.fleet = fleet
+        # oracle backend (or its fingerprint string) for fleet runs: each
+        # task's done marker gets stamped with per-scenario divergence vs
+        # the oracle's cached results (see repro_torch.obs.diff)
+        self.diff_against = diff_against
 
     def run(self, sweep: Union[Sweep, Sequence[ScenarioSpec]],
             **request_options) -> SweepReport:
@@ -154,28 +177,84 @@ class SweepRunner:
             reg.inc(labeled("sweep.cache_misses", backend=self.backend.name),
                     len(miss))
         simulate_s = 0.0
-        if miss:
-            # each chunk is one run_many = at most one compiled program;
-            # more means a static arg or padding shape varied mid-sweep
-            chunks = 1 if not self.chunk_size else \
-                -(-len(miss) // self.chunk_size)
-            with obs_phase("sweep.simulate",
-                           attrs={"backend": self.backend.name,
-                                  "n": len(miss)}) as ph, \
-                    no_retrace(allowed=chunks, label=f"sweep '{name}'"):
-                fresh = self.backend.run_chunked([requests[i] for i in miss],
-                                                 self.chunk_size)
-            simulate_s = ph.wall_s
-            for i, res in zip(miss, fresh):
-                results[i] = res
-                check_result_finite(f"{self.backend.name}:{specs[i].name}",
-                                    res)
-                if use_cache:
-                    self.cache.put(keys[i], res)
+        fleet_metrics = None
+        if miss and self.fleet is not None and use_cache:
+            t_fleet = time.perf_counter()
+            fleet_metrics = self._run_fleet(name, specs, requests, keys,
+                                            miss, results, request_options)
+            simulate_s = time.perf_counter() - t_fleet
+        elif miss:
+            if self.fleet is not None:
+                # record_events/probes bypass the cache, and the cache is
+                # the fleet's only result channel
+                raise ValueError("fleet mode cannot serve "
+                                 "record_events=True or probes= (results "
+                                 "round-trip through the cache, which drops "
+                                 "events and probe series)")
+            simulate_s = self._run_inline(name, specs, requests, keys, miss,
+                                          results, use_cache)
 
         entries = [SweepEntry(spec=s, request=r, result=res, cached=c)
                    for s, r, res, c in zip(specs, requests, results, cached)]
         return SweepReport(name=name, backend=self.backend.name,
                            entries=entries,
                            wall_time=time.perf_counter() - t0,
-                           simulate_s=simulate_s)
+                           simulate_s=simulate_s, fleet=fleet_metrics)
+
+    def _run_inline(self, name, specs, requests, keys, miss, results,
+                    use_cache) -> float:
+        """Run the misses in this process through `run_chunked`; fills
+        `results` (and the cache) in place, returns the simulate wall."""
+        # each chunk is one run_many = at most one compiled program;
+        # more means a static arg or padding shape varied mid-sweep
+        chunks = 1 if not self.chunk_size else \
+            -(-len(miss) // self.chunk_size)
+        with obs_phase("sweep.simulate",
+                       attrs={"backend": self.backend.name,
+                              "n": len(miss)}) as ph, \
+                no_retrace(allowed=chunks, label=f"sweep '{name}'"):
+            fresh = self.backend.run_chunked([requests[i] for i in miss],
+                                             self.chunk_size)
+        for i, res in zip(miss, fresh):
+            results[i] = res
+            check_result_finite(f"{self.backend.name}:{specs[i].name}", res)
+            if use_cache:
+                self.cache.put(keys[i], res)
+        return ph.wall_s
+
+    def _run_fleet(self, name, specs, requests, keys, miss, results,
+                   request_options):
+        """Dispatch the cache misses through a supervised worker fleet;
+        fills `results` in place from the cache afterwards and returns
+        the run's metrics dict. Scenarios whose chunk was poisoned stay
+        None. Falls back to the in-process path, on the same backend and
+        device, when spawn workers can't start (no importable __main__ —
+        stdin/REPL parents)."""
+        from ..fleet import default_coord_dir, run_fleet, sweep_job_for, \
+            sweep_tasks
+        from ..train.data import _pool_usable
+        if not _pool_usable():
+            self._run_inline(name, specs, requests, keys, miss, results,
+                             True)
+            return None
+        oracle_fp = self.diff_against
+        if oracle_fp is not None and hasattr(oracle_fp, "fingerprint"):
+            oracle_fp = oracle_fp.fingerprint()
+        job = sweep_job_for(self.backend, self.cache.root,
+                            request_options=request_options,
+                            diff_against=oracle_fp)
+        tasks = sweep_tasks([specs[i] for i in miss],
+                            [requests[i] for i in miss],
+                            [keys[i] for i in miss], self.chunk_size)
+        config = self.fleet
+        if config.coord_dir is None:
+            config = config.with_coord_dir(
+                default_coord_dir(self.cache.root, tasks))
+        metrics = run_fleet(tasks, job, config)
+        for i in miss:
+            res = self.cache.get(keys[i])
+            if res is not None:
+                check_result_finite(f"{self.backend.name}:{specs[i].name}",
+                                    res)
+            results[i] = res
+        return metrics.as_dict()

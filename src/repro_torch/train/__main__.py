@@ -16,7 +16,8 @@ under --workdir (results/ by default) and are content-hash cached, so a
 second run is pure cache hits; the shards and the ground truth share
 their keys (and bytes) with the JAX package's stores. `--data-key` prints
 the corpus content hash, the JAX CLI's for the same flags, and exits.
-`--workers` above 1 raises: the dataset worker pool is not ported.
+`--workers N` builds the dataset's missing shards in N supervised fleet
+worker processes (`repro_torch.fleet`; the DES runs on the host).
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cap ground-truth events per sim")
     ap.add_argument("--workers", type=int, default=0,
                     help="worker processes for dataset generation "
-                         "(0 = inline; more raises: not ported)")
+                         "(0 = inline)")
     # model (CI-scale defaults; paper scale is hidden 400/gnn 300/mlp 200)
     ap.add_argument("--hidden", type=int, default=96)
     ap.add_argument("--gnn-dim", type=int, default=64)

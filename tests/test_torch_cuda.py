@@ -577,3 +577,35 @@ def test_service_captures_once_per_bucket(card):
     direct = backend.run_many(reqs[:2]) + backend.run_many(reqs[2:])
     for a, b in zip(got, direct):
         assert a.fcts.tobytes() == b.fcts.tobytes()
+
+
+def test_flowsim_fast_fleet_equals_inprocess_on_card(card, tmp_path):
+    """Two spawn workers, each with its own CUDA context on the card, fill
+    the cache bitwise as an in-process sweep at the same chunk size; the
+    workers rebuild the dispatcher's backend (fingerprint ends -kcuda),
+    so they write the same keys."""
+    from repro_torch.fleet import (FleetConfig, run_fleet, sweep_job_for,
+                                   sweep_tasks)
+    from repro_torch.scenarios import SweepRunner, get_suite
+    from repro_torch.scenarios.cache import ResultCache, result_key
+    backend = get_backend("flowsim_fast")
+    assert backend.fingerprint().endswith("-kcuda")
+    specs = list(get_suite("smoke16", num_flows=60).limit(8))
+    reqs = [s.to_request() for s in specs]
+    keys = [result_key(r, backend) for r in reqs]
+    inline = str(tmp_path / "inline")
+    SweepRunner(backend, cache_dir=inline, chunk_size=2).run(specs)
+    job = sweep_job_for(backend, str(tmp_path / "fleet"))
+    assert job.device == "cuda" and job.backend_kwargs == {"device": "cuda"}
+    tasks = sweep_tasks(specs, reqs, keys, 2)
+    metrics = run_fleet(tasks, job, FleetConfig(
+        workers=2, coord_dir=str(tmp_path / "coord"), lease_timeout_s=30.0,
+        chunk_timeout_s=300.0))
+    assert metrics.done == metrics.total == 4 and metrics.poisoned == 0
+    assert metrics.workers_spawned == 2
+    fleet_store, ref = ResultCache(str(tmp_path / "fleet")), \
+        ResultCache(inline)
+    for k in keys:
+        a, b = fleet_store.get(k), ref.get(k)
+        assert a.fcts.tobytes() == b.fcts.tobytes()
+        assert a.slowdowns.tobytes() == b.slowdowns.tobytes()

@@ -4,8 +4,9 @@ import neither `jax` nor anything of the JAX package `repro`, nor
 port's checkpoints and blob store use its own codec, zlib and its own
 zstd decoder). The sweep engine, the training pipeline, the probes, the
 obs layer with its divergence observatory, the compiled event loops,
-the simulation service, and the CLIs' modules are among those
-imported."""
+the simulation service, the fleet with its resilience policies, and the
+CLIs' modules are among those imported. That a spawned fleet worker
+imports neither is checked in tests/test_torch_fleet_spawn.py."""
 import ast
 import os
 import subprocess
@@ -46,7 +47,11 @@ MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.sim.closedloop",
            "repro_torch.core.compiled", "repro_torch.serve",
            "repro_torch.serve.clock", "repro_torch.serve.metrics",
            "repro_torch.serve.service", "repro_torch.serve.http",
-           "repro_torch.serve.__main__"]
+           "repro_torch.serve.__main__", "repro_torch.runtime.resilience",
+           "repro_torch.fleet", "repro_torch.fleet.coord",
+           "repro_torch.fleet.chaos", "repro_torch.fleet.metrics",
+           "repro_torch.fleet.jobs", "repro_torch.fleet.worker",
+           "repro_torch.fleet.supervisor", "repro_torch.fleet.__main__"]
 
 
 def _forbidden(name: str) -> bool:

@@ -9,7 +9,9 @@ package's, on the CPU:
   but `train.compiles`; and the stores are shared:
   JAX's pipeline, pointed at the port's directories, finds every shard
   and every ground-truth result as a hit;
-- `build_dataset(workers > 1)` raises, naming the fleet;
+- `build_dataset(workers > 1)`, which raised while the port had no
+  fleet, builds the inline shards where spawn workers can't start (its
+  fleet path is in tests/test_torch_fleet_spawn.py);
 - `python -m repro_torch.train --device cpu`: a re-run resumes to the
   same weights hash; `--data-key` prints JAX's; the default device raises
   without a card;
@@ -110,13 +112,22 @@ def test_train_suite_matches_jax(tmp_path, monkeypatch):
     json.dumps(rep)          # the report is JSON as it stands
 
 
-def test_workers_above_one_raise(tmp_path):
+def test_workers_above_one_raise(tmp_path, monkeypatch):
+    """workers=2 no longer raises: with no importable __main__ (forced
+    here, so nothing is spawned) it builds in-process, the same keys and
+    shard bytes as workers=1, and reports no fleet."""
+    from repro_torch.train import data
+    monkeypatch.setattr(data, "_pool_usable", lambda: False)
     specs = list(get_suite("smoke16", num_flows=6))[:2]
-    with pytest.raises(NotImplementedError, match="fleet"):
-        build_dataset(specs, M4Config(**TINY), str(tmp_path), workers=2)
-    _, rep = build_dataset(specs, M4Config(**TINY), str(tmp_path),
-                           workers=1, max_events=16)
-    assert rep.misses == 2
+    two, rep2 = build_dataset(specs, M4Config(**TINY), str(tmp_path / "2"),
+                              workers=2, max_events=16)
+    one, rep1 = build_dataset(specs, M4Config(**TINY), str(tmp_path / "1"),
+                              workers=1, max_events=16)
+    assert rep2.misses == rep1.misses == 2 and rep2.keys == rep1.keys
+    assert rep2.fleet is None and rep1.fleet is None
+    for a, b in zip(two, one):
+        for k, v in a.to_arrays().items():
+            assert v.tobytes() == b.to_arrays()[k].tobytes(), k
 
 
 def _last_hash(out: str) -> str:
