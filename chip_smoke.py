@@ -77,17 +77,28 @@ Phases, each printing one JSON line:
                  --check` over the spans and the 16 probe files;
 9. train       — m4's training path at full width: the packet DES on two
                  Table-2 scenario specs, cut from 2000 to TRAIN_FLOWS =
-                 1000 flows (K = 2000 events each) to keep the phase near
-                 three minutes, and their event tensors (build_dataset); `fit` per sim (one
-                 epoch, two updates, the TrainConfig defaults) with
-                 seconds per update, teacher-forced events/s, peak device
+                 1000 flows (K = 2000 events each), and their event
+                 tensors (build_dataset); `fit` per sim (two epochs, two
+                 updates each, one bucket shape, the TrainConfig defaults)
+                 through the compiled step (one CUDA graph of the update
+                 per bucket shape, captured in the first epoch and
+                 replayed) and the same `fit` under `compiled.eager()`
+                 from one state: weights, moments and losses bitwise, one
+                 program then none (TRACE_COUNTS and the history's
+                 `compiles`), seconds per update of both (the second
+                 epoch's), the compile's warm-up, capture and
+                 instantiation walls and graph pool bytes, peak device
                  memory, each head's loss and the grad norm; one backward
                  (200 events) in which every parameter leaf gets a
                  finite, non-zero gradient; its forward and backward per
-                 event, timed and profiled (40 events); batch mode (both
-                 sims cut to 1000 events, one update); one update on the
-                 card against the CPU (200 events); resume from a
-                 checkpoint against an uninterrupted run, bitwise;
+                 event, timed and profiled (40 events), and a compiled
+                 step over the same events captured, replayed and
+                 profiled (kernels per event, device busy share); batch
+                 mode the same way (both sims cut to 1000 events, two
+                 epochs of one update); one update on the card against
+                 the CPU (200 events); resume from a checkpoint against
+                 an uninterrupted run, bitwise, each fit that trains
+                 building its own program and a finished one none;
                  `evaluate_m4` of the trained weights on a held-out
                  2000-flow scenario spec (packet ground truth, numpy
                  flowSim, m4 on the card). The GRU and GNN counters stay
@@ -105,9 +116,11 @@ Phases, each printing one JSON line:
                  B = 8 chunk (smoke16 at its own 30-58 flows); then `python -m
                  repro_torch.train` in-process at paper width (2 Table-2
                  sims and 2 Table-3 eval specs of CLI_FLOWS = 500 flows,
-                 one epoch), run twice: the second a finished resume with
-                 the same weights hash, all dataset and ground-truth
-                 hits, and only the evaluation's m4 launching kernels;
+                 one epoch), run twice: the first builds one training
+                 program (its report's `compiles`), the second is a
+                 finished resume with the same weights hash, no program,
+                 all dataset and ground-truth hits, and only the
+                 evaluation's m4 launching kernels;
 11. fleet      — the fault-tolerant fleet on the card: smoke16 at
                  SWEEP_FLOWS through SweepRunner(fleet=FleetConfig(
                  workers=2)) at chunk FLEET_CHUNK = 4 (4 tasks), for m4
@@ -1181,10 +1194,14 @@ def phase_train(torch, np, cfg, dev, smi):
     -> evaluate_m4 over a spec. Returns the evaluation's launch counts."""
     import dataclasses
     import tempfile
+    import contextlib
+    from repro_torch.core import compiled
     from repro_torch.core.training import combined_loss
     from repro_torch.scenarios import random_spec
-    from repro_torch.train import (TrainConfig, build_dataset, evaluate_m4,
-                                   fit, init_state, load_state)
+    from repro_torch.train import (TRACE_COUNTS, TrainConfig, build_dataset,
+                                   evaluate_m4, fit, init_state, load_state,
+                                   make_buckets)
+    from repro_torch.train.loop import _make_schedule, make_bucket_step
     from repro_torch.weights import tree_digest, tree_leaves, tree_map
 
     def log(*a):
@@ -1212,34 +1229,81 @@ def phase_train(torch, np, cfg, dev, smi):
          links=[b.num_links for b in batches], build_dataset_s=report.wall_s,
          misses=report.misses, cut=cut_flows)
 
-    def fit_counted(name, bs, tc, **extra):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        (state, hist), counts, wall = run_counted(torch, lambda: fit(
-            bs, cfg, tc, state=init_state(cfg, 0, device=dev), device=dev,
-            log=log))
-        if counts != launches():
-            raise AssertionError(f"train {name}: the differentiated step "
-                                 f"launched kernels {counts}")
-        h = hist[-1]
-        updates = len(bs) if tc.step_mode == "per_sim" else 1
+    def fit_pair(name, bs, tc, **extra):
+        """The same `fit` compiled (one captured CUDA graph of the update
+        per bucket shape, replayed) and under `compiled.eager()`, from one
+        state: weights, moments and every epoch's losses bitwise, no
+        kernel wrapper launched, one program per bucket shape in the first
+        epoch and none in the second. Seconds per update are the second
+        epoch's (replays, or eager steps); the first epoch's `compile_s`
+        holds the warm-up, capture and instantiation, whose walls and pool
+        bytes an `eval_fn` reads from `compiled.entries()` while the step
+        lives."""
+        shapes = len({b.shape for b in make_buckets(bs, tc.bucket_size)})
+        updates = len(bs) if tc.step_mode == "per_sim" else shapes
         k = max(b.num_events for b in bs)
-        if not all(np.isfinite(h[x]) for x in ("loss", "grad_norm")):
-            raise AssertionError(f"train {name}: loss or grad norm not "
-                                 "finite")
+        out = {}
+        for how in ("compiled", "eager"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = TRACE_COUNTS["train_step"]
+            mode = compiled.eager() if how == "eager" else \
+                contextlib.nullcontext()
+            with mode:
+                (state, hist), counts, wall = run_counted(torch, lambda: fit(
+                    bs, cfg, tc, state=init_state(cfg, 0, device=dev),
+                    device=dev, log=log, eval_every=1,
+                    eval_fn=lambda p: [e for e in compiled.entries()
+                                       if e["entry"] == "train_step"]))
+            programs = TRACE_COUNTS["train_step"] - c0
+            want = [shapes, 0] if how == "compiled" else [0, 0]
+            if counts != launches() or programs != sum(want) or \
+                    [h["compiles"] for h in hist] != want:
+                raise AssertionError(
+                    f"train {name} {how}: launches {counts}, programs "
+                    f"{programs}, compiles {[h['compiles'] for h in hist]},"
+                    f" expected {want}")
+            if not all(np.isfinite(h[x]) for h in hist
+                       for x in ("loss", "grad_norm")):
+                raise AssertionError(f"train {name} {how}: loss or grad "
+                                     "norm not finite")
+            out[how] = (state, hist, wall,
+                        torch.cuda.max_memory_allocated())
+        (cs, ch, cwall, cpeak), (es, eh, ewall, epeak) = \
+            out["compiled"], out["eager"]
+        heads = ("loss", "sldn", "size", "queue", "lr", "grad_norm")
+        if tree_digest(cs.tree()) != tree_digest(es.tree()) or any(
+                c[x] != e[x] for c, e in zip(ch, eh) for x in heads):
+            raise AssertionError(f"train {name}: the replayed step differs "
+                                 "from the eager step")
+        progs = ch[0]["eval"]
+        h = ch[-1]
         line(step=name, step_mode=tc.step_mode, sims=len(bs),
-             events_per_sim=k, updates=state.step, wall_s=wall,
-             s_per_update=h["step_s"] / updates,
-             events_per_s=len(bs) * k / h["step_s"],
-             peak_memory_bytes=torch.cuda.max_memory_allocated(),
-             loss=h["loss"], sldn=h["sldn"], size=h["size"],
-             queue=h["queue"], grad_norm=h["grad_norm"], lr=h["lr"],
-             launches=counts, card=smi, **extra)
-        return state, hist
+             events_per_sim=k, bucket_shapes=shapes, epochs=tc.epochs,
+             updates=cs.step, bitwise_vs_eager=True,
+             programs=shapes, compiles=[x["compiles"] for x in ch],
+             s_per_update_compiled=ch[1]["step_s"] / updates,
+             s_per_update_eager=eh[1]["step_s"] / updates,
+             speedup=eh[1]["step_s"] / ch[1]["step_s"],
+             events_per_s_compiled=updates * k / ch[1]["step_s"],
+             compile_s=ch[0]["compile_s"],
+             warmup_s=[x["warmup_s"] for x in progs],
+             capture_s=[x["capture_s"] for x in progs],
+             instantiate_s=[x["instantiate_s"] for x in progs],
+             pool_bytes=[x["pool_bytes"] for x in progs],
+             buffer_bytes=[x["buffer_bytes"] for x in progs],
+             peak_memory_bytes_compiled=cpeak,
+             peak_memory_bytes_eager=epeak, wall_s_compiled=cwall,
+             wall_s_eager=ewall, loss=h["loss"], sldn=h["sldn"],
+             size=h["size"], queue=h["queue"], grad_norm=h["grad_norm"],
+             lr=h["lr"], launches=launches(), card=smi, **extra)
+        del es
+        return cs
 
-    # ---- fit, per sim: one epoch over the two sims, the defaults
-    state, _ = fit_counted("fit_per_sim", batches, TrainConfig(epochs=1),
-                           cut=cut_flows)
+    # ---- fit, per sim: two epochs over the two sims (one bucket shape),
+    # compiled and eager
+    state = fit_pair("fit_per_sim", batches, TrainConfig(epochs=2),
+                     cut=cut_flows)
     trained = state.params
     del state
 
@@ -1296,12 +1360,44 @@ def phase_train(torch, np, cfg, dev, smi):
          device_busy_share_unprofiled=busy_us * 1e-6 / plain_wall,
          top_device_us=[(e.key, e.device_time_total) for e in top[:8]],
          card=smi)
-    del leaves, b0
+    del leaves
+
+    # ---- where the replay's time goes: a compiled per-sim step over the
+    # same 40 events (B = 1), its first call capturing, its second
+    # replaying (timed, then profiled)
+    step = make_bucket_step(cfg, TrainConfig(), _make_schedule(
+        TrainConfig(), 4))
+    bb = {n: t[None] for n, t in b0.items()}
+    st0 = init_state(cfg, 0, device=dev)
+    c0 = TRACE_COUNTS["train_step"]
+    (p1, o1, _), _, first_wall = run_counted(
+        torch, lambda: step(st0.params, st0.opt, bb))
+    (p2, o2, _), _, replay_wall = run_counted(
+        torch, lambda: step(p1, o1, bb))
+    with torch.profiler.profile(activities=acts) as prof:
+        _, _, wall = run_counted(torch, lambda: step(p2, o2, bb))
+    if TRACE_COUNTS["train_step"] != c0 + 1:
+        raise AssertionError("train profile_replay: the replays built "
+                             "programs")
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kernels)
+    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    line(step="profile_replay", events=k, first_call_s=first_wall,
+         replay_ms_per_event=1e3 * replay_wall / k,
+         eager_ms_per_event=1e3 * plain_wall / k, wall_s=wall,
+         cuda_kernels_per_event=len(kernels) / k,
+         device_us_per_event=busy_us / k,
+         device_busy_share=busy_us * 1e-6 / wall,
+         device_busy_share_unprofiled=busy_us * 1e-6 / replay_wall,
+         top_device_us=[(e.key, e.device_time_total) for e in top[:8]],
+         card=smi)
+    del step, p1, o1, p2, o2, st0, bb, b0
 
     # ---- batch mode: one bucket of both sims, cut to 1000 events
     cut = [b.head(1000) for b in batches]
-    fit_counted("fit_batch", cut, TrainConfig(epochs=1, step_mode="batch"),
-                cut=f"{cut_flows}, max_events=1000")
+    fit_pair("fit_batch", cut, TrainConfig(epochs=2, step_mode="batch"),
+             cut=f"{cut_flows}, max_events=1000")
 
     # ---- the card against the CPU: one per-sim update, 200 events
     tc = TrainConfig(epochs=1, shuffle=False)
@@ -1322,19 +1418,28 @@ def phase_train(torch, np, cfg, dev, smi):
     del gpu, cpu
 
     # ---- checkpoint and resume: 1 epoch, then 2, against 2 in one go
-    # (constant LR: the warmup-cosine schedule spans the configured epochs)
+    # (constant LR: the warmup-cosine schedule spans the configured
+    # epochs), then a finished run. Each fit that trains builds its own
+    # program (one bucket shape) in its first epoch and replays it after;
+    # the finished run builds none
     cut200 = [b.head(200) for b in batches]
+    programs = []
+
+    def counted_fit(tc):
+        c0 = TRACE_COUNTS["train_step"]
+        out = fit(cut200, cfg, tc, state=init_state(cfg, 0, device=dev),
+                  device=dev, log=log)
+        programs.append((TRACE_COUNTS["train_step"] - c0,
+                         [h["compiles"] for h in out[1]]))
+        return out
+
     with tempfile.TemporaryDirectory() as tmp:
         tc = TrainConfig(epochs=2, schedule="const",
                          ckpt_dir=os.path.join(tmp, "resumed"))
-        fit(cut200, cfg, dataclasses.replace(tc, epochs=1),
-            state=init_state(cfg, 0, device=dev), device=dev, log=log)
-        resumed, rh = fit(cut200, cfg, tc,
-                          state=init_state(cfg, 0, device=dev), device=dev,
-                          log=log)
-        full, fh = fit(cut200, cfg, dataclasses.replace(tc, ckpt_dir=None),
-                       state=init_state(cfg, 0, device=dev), device=dev,
-                       log=log)
+        counted_fit(dataclasses.replace(tc, epochs=1))
+        resumed, rh = counted_fit(tc)
+        full, fh = counted_fit(dataclasses.replace(tc, ckpt_dir=None))
+        counted_fit(tc)
         restored, done = load_state(tc.ckpt_dir, cfg, device=dev)
     # tree_digest hashes every leaf's bytes: equal digests, bitwise trees
     digests = (tree_digest(resumed.tree()), tree_digest(full.tree()),
@@ -1343,9 +1448,16 @@ def phase_train(torch, np, cfg, dev, smi):
             [h["loss"] for h in rh] != [h["loss"] for h in fh]:
         raise AssertionError(f"train resume: not bitwise (digests "
                              f"{digests}, epochs {done})")
+    want = [(1, [1]), (1, [1, 1]), (1, [1, 0]), (0, [1, 1])]
+    if programs != want:
+        raise AssertionError(f"train resume: programs {programs}, "
+                             f"expected {want}")
     line(step="resume", events=200, sims=2, epochs=2,
          schedule="const", bitwise=True, tree_digest=digests[0][:16],
-         updates=resumed.step)
+         updates=resumed.step,
+         programs_per_fit={"first_epoch": 1, "resumed": 1, "in_one_go": 1,
+                           "finished": 0},
+         compiles_per_epoch_in_one_go=[h["compiles"] for h in fh])
     del resumed, full, restored
 
     # ---- evaluation of the trained weights on a held-out scenario
@@ -1497,6 +1609,14 @@ def phase_sweep(torch, np, m4, fs, params, cfg, smi):
                 raise AssertionError(f"train CLI {run}: rc {rc}, launches "
                                      f"{counts}, expected {want} (m4's "
                                      "eval only)")
+            # one bucket shape: one program in the first run's one epoch,
+            # none in the finished resume
+            programs = 1 if run == "first" else 0
+            if tlog["train"]["compiles"] != programs or \
+                    [e["compiles"] for e in tlog["train"]["epochs"]] != [1]:
+                raise AssertionError(f"train CLI {run}: compiles "
+                                     f"{tlog['train']['compiles']}, "
+                                     f"expected {programs}")
             ev = tlog["eval"]
             if not (np.isfinite(ev["m4_err_mean"])
                     and np.isfinite(ev["flowsim_err_mean"])):
@@ -1504,9 +1624,13 @@ def phase_sweep(torch, np, m4, fs, params, cfg, smi):
             epochs = tlog["train"]["epochs"]
             emit("sweep", path="train_cli", run=run, wall_s=wall,
                  updates=tlog["train"]["updates"],
+                 compiles=tlog["train"]["compiles"],
+                 compile_s=tlog["train"]["compile_s"],
                  step_s=tlog["train"]["step_s"],
-                 s_per_update=tlog["train"]["step_s"] / max(
-                     tlog["train"]["updates"], 1),
+                 # one epoch: its only step call builds the program
+                 s_per_update_with_compile=(
+                     tlog["train"]["compile_s"] + tlog["train"]["step_s"])
+                 / max(tlog["train"]["updates"], 1),
                  epochs_trained_this_run=len(epochs) if run == "first"
                  else 0, dataset_hits=tlog["dataset"]["hits"],
                  dataset_misses=tlog["dataset"]["misses"],

@@ -28,15 +28,31 @@ shape, the static options) and counts each compile in its module's
   each kind its graphs hold and adds them per replay. The warm-up and
   the capture do not count.
 
-`eager()` runs the loops without the cache, as plain eager calls on any
-device: the comparison of a captured loop with its eager twin on the
-card uses it, and nothing else should. `clear_compiled()` drops every
-entry (the counterpart of `jax.clear_caches`); `entries()` reports them.
+The training step (`StepCache`, `StepProgram`) follows the same rules
+with one difference of ownership. JAX's jit cache of a training step
+belongs to the jitted function that one `fit` call (or one
+`make_train_step` call) makes, so a `StepCache` belongs to that step
+function and is dropped with it: a full-width training graph's pool
+holds the whole step's activations, and a process-wide entry left behind
+by each `fit` would fill the card. The live caches are reachable through
+a weak registry, so `entries()` reports them and `clear_compiled()`
+drops their programs. A training program runs with autograd on: on a
+card its graph holds one whole update (forward, backward, clipping and
+AdamW, written in place into the program's buffers), and all the
+programs of one cache share one pool (they never run at once).
+
+`eager()` runs the loops and the training steps without the cache, as
+plain eager calls on any device: the comparison of a captured program
+with its eager twin on the card uses it, and nothing else should.
+`clear_compiled()` drops every entry (the counterpart of
+`jax.clear_caches`); `entries()` reports them.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -45,6 +61,7 @@ import torch
 # kernel's grid barrier allows one launch per card at a time
 _LOCK = threading.RLock()
 _CACHE: Dict[tuple, "Entry"] = {}
+_STEP_CACHES: "weakref.WeakSet[StepCache]" = weakref.WeakSet()
 _EAGER = threading.local()
 
 
@@ -101,6 +118,19 @@ class Program:
                 step()
 
 
+def _warm_up(dev: torch.device, fn: Callable[[], object]) -> None:
+    """Run `fn` once on a side stream, so that what it sets up lazily
+    (library handles and workspaces, the allocator's blocks) is not met
+    inside a capture; wait for it and release the blocks it cached."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+
 def _launch_counters():
     """The kernel wrappers whose `.launches` a replay must advance."""
     from ..kernels.bipartite.ops import bipartite_round
@@ -146,14 +176,7 @@ class Entry:
         prog, dev = self.program, self.device
         counters = _launch_counters()
         saved = [fn.launches for fn in counters]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for name, _ in prog.plan:
-                prog.steps[name]()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
+        _warm_up(dev, lambda: [prog.steps[name]() for name, _ in prog.plan])
         reserved = torch.cuda.memory_reserved(dev)
         pool = torch.cuda.graph_pool_handle()
         try:
@@ -208,10 +231,140 @@ def run(counts, name: str, key: tuple, device, build: Callable[..., Program],
         return entry.run(*args)
 
 
+class StepProgram:
+    """What a training entry runs, built by the training module for one
+    key. `load(*args)` copies one call's inputs (weights, moments, the
+    bucket's arrays) into the buffers the program owns and resets its
+    counters, eagerly and outside any graph; `body()` applies one update
+    in place on those buffers (the work a graph captures: no host scalar,
+    no `.item()`); `replays` bodies make one call (the sims of a per-sim
+    bucket); `result()` returns copies of what the call returns, so no
+    caller ever holds a buffer a later call writes."""
+
+    def __init__(self, *, load: Callable[..., None], body: Callable[[], None],
+                 result: Callable[[], tuple], replays: int, buffers=()):
+        self.load, self.body, self.result = load, body, result
+        self.replays = replays
+        self.buffers = list(buffers)
+
+    def run_eager(self) -> None:
+        for _ in range(self.replays):
+            self.body()
+
+
+class StepEntry:
+    """One key's training program, and on a card its graph, captured
+    into `pool`. The walls of its compile (warm-up, capture,
+    instantiation) are kept for `entries()`."""
+
+    def __init__(self, key: tuple, program: StepProgram,
+                 device: torch.device, pool=None):
+        self.key, self.program, self.device = key, program, device
+        self.pool = pool
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.pool_bytes = 0
+        self.buffer_bytes = sum(t.numel() * t.element_size()
+                                for t in program.buffers)
+        self.walls: Dict[str, float] = {}
+        self.calls = 0
+
+    def run(self, *args) -> tuple:
+        prog = self.program
+        prog.load(*args)
+        if self.device.type == "cuda":
+            if self.graph is None:
+                self._capture()
+                prog.load(*args)        # the warm-up trained the buffers
+            for _ in range(prog.replays):
+                self.graph.replay()
+        else:
+            prog.run_eager()
+        self.calls += 1
+        return prog.result()
+
+    def _capture(self) -> None:
+        """Warm the update up once on a side stream, then capture it into
+        a graph in the pool. A failed capture raises."""
+        prog, dev = self.program, self.device
+        t0 = time.perf_counter()
+        _warm_up(dev, prog.body)
+        t1 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode="thread_local"):
+            prog.body()
+            t2 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        self.graph = graph
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.walls = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
+                      "instantiate_s": t3 - t2}
+
+    def report(self) -> dict:
+        return {"entry": self.key[0], "device": str(self.device),
+                "graphs": ["update"] if self.graph is not None else [],
+                "calls": self.calls, "replays_per_call": self.program.replays,
+                "pool_bytes": self.pool_bytes,
+                "buffer_bytes": self.buffer_bytes, **self.walls}
+
+
+class StepCache:
+    """The compiled programs of one training step function, keyed like
+    JAX's jit of it (the shapes and dtypes of the call's arrays, and the
+    device). Each new program counts one in `counts[name]`; on a card it
+    is captured on first use, and every program of the cache shares one
+    graph pool. Dropped with its step function; one call runs at a time
+    (the programs own their buffers)."""
+
+    def __init__(self, counts, name: str):
+        self.counts, self.name = counts, name
+        self.entries: Dict[tuple, StepEntry] = {}
+        self.pool = None
+        self.lock = threading.Lock()
+        with _LOCK:
+            _STEP_CACHES.add(self)
+
+    def run(self, key: tuple, device, build: Callable[..., StepProgram],
+            *args) -> tuple:
+        """Run one call through `key`'s program: built by `build(*args)`
+        and counted on first use, then loaded with `args` and run (on a
+        card: replayed). Under `eager()` the program is built afresh, run
+        eagerly and not cached."""
+        device = torch.device(device)
+        if getattr(_EAGER, "on", False):
+            prog = build(*args)
+            prog.load(*args)
+            prog.run_eager()
+            return prog.result()
+        full = (self.name,) + tuple(key) + (str(device),)
+        with self.lock:
+            entry = self.entries.get(full)
+            if entry is not None:
+                return entry.run(*args)
+            self.counts[self.name] += 1
+            if device.type == "cuda" and self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            entry = StepEntry(full, build(*args), device, self.pool)
+            self.entries[full] = entry
+            try:
+                return entry.run(*args)
+            except BaseException:
+                del self.entries[full]
+                raise
+
+    def clear(self) -> None:
+        with self.lock:
+            self.entries.clear()
+            self.pool = None
+
+
 @contextlib.contextmanager
 def eager():
-    """Run the loops of this thread eagerly and uncached, on any device:
-    for comparing a captured loop with its eager twin only."""
+    """Run the loops and training steps of this thread eagerly and
+    uncached, on any device: for comparing a captured program with its
+    eager twin only."""
     prev = getattr(_EAGER, "on", False)
     _EAGER.on = True
     try:
@@ -225,10 +378,15 @@ def clear_compiled() -> None:
     The `TRACE_COUNTS` stay as they are, as JAX's do."""
     with _LOCK:
         _CACHE.clear()
+        for cache in list(_STEP_CACHES):
+            cache.clear()
 
 
 def entries() -> List[dict]:
     """One report per live entry: its entry point, device, graphs, calls,
-    the bytes of its graph pool and of its own buffers."""
+    the bytes of its graph pool and of its own buffers (a training entry
+    also its replays per call and its compile walls)."""
     with _LOCK:
-        return [e.report() for e in _CACHE.values()]
+        return [e.report() for e in _CACHE.values()] + [
+            e.report() for cache in list(_STEP_CACHES)
+            for e in cache.entries.values()]

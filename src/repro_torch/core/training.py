@@ -5,6 +5,12 @@ truth event sequence of each simulation. Per event: temporal GRU advance
 -> query remaining size & queue length (dense losses) -> GNN spatial
 update -> query FCT slowdown. Combined L1 loss over the three heads.
 
+This module owns the math (`event_scan_losses`, `combined_loss`); the
+training pipeline lives in `repro_torch.train`. The legacy direct API
+stays: `make_train_step` (one sim's compiled AdamW step, counted in
+`repro_torch.train.TRACE_COUNTS` as "train_step_legacy") and `train_m4`
+(a wrapper over `fit` with the seed trainer's schedule).
+
 The JAX `lax.scan` becomes a Python loop over the K events, and every
 function takes a leading batch axis of sims (the bucket of the batch step
 mode). The event loop runs only what depends on the carried state; what
@@ -25,6 +31,8 @@ from __future__ import annotations
 import torch
 
 from ..nn import mlp
+from ..optim import adamw_update, clip_by_global_norm
+from ..weights import tree_map
 from .model import (M4Config, predict_queue, predict_size, predict_sldn,
                     spatial_update, temporal_update)
 
@@ -145,3 +153,77 @@ def combined_loss(params, cfg: M4Config, b: dict, *, w_size=1.0,
     l = event_scan_losses(params, cfg, b)
     total = w_sldn * l["sldn"] + w_size * l["size"] + w_queue * l["queue"]
     return total, l
+
+
+def adamw_step(loss_fn, params, opt, *, lr, clip_norm, weight_decay):
+    """One AdamW update of `params` (moments and step in `opt`) down the
+    gradient of `loss_fn(params) -> (loss, parts)`, clipped to global norm
+    `clip_norm`; `lr` a float or a float32 scalar tensor. Returns (params,
+    opt, loss, parts, grad norm before clipping), all new tensors."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        tot, parts = loss_fn(leaves)
+        tot.backward()
+    grads = tree_map(lambda p: p.grad if p.grad is not None
+                     else torch.zeros_like(p), leaves)
+    with torch.no_grad():
+        grads, gn = clip_by_global_norm(grads, clip_norm)
+        params, opt = adamw_update(params, grads, opt, lr=lr,
+                                   weight_decay=weight_decay)
+    return params, opt, tot.detach(), \
+        {k: v.detach() for k, v in parts.items()}, gn
+
+
+def make_train_step(cfg: M4Config, *, lr=3e-4, ablate_size=False,
+                    ablate_queue=False):
+    """One sim's compiled AdamW step (legacy direct API), clip 1.0 and
+    weight decay 1e-4: `train_step(params, opt, b) -> (params, opt, tot,
+    parts, grad_norm)` with `b` one sim's `EventBatch` fields as tensors
+    on one device.
+
+    Prefer `repro_torch.train.fit`: the step builds one program per sim
+    shape (a CUDA graph on a card), so a shape-diverse corpus costs one
+    per sim, which the bucketed pipeline pads away. Each program counts
+    in `repro_torch.train.TRACE_COUNTS` ("train_step_legacy"), and the
+    programs go with the step."""
+    from ..train.loop import TRACE_COUNTS, array_key, step_program
+    from . import compiled
+    w_size = 0.0 if ablate_size else 1.0
+    w_queue = 0.0 if ablate_queue else 1.0
+
+    def update(params, opt, b):
+        params, opt, tot, parts, gn = adamw_step(
+            lambda p: combined_loss(p, cfg, b, w_size=w_size,
+                                    w_queue=w_queue),
+            params, opt, lr=lr, clip_norm=1.0, weight_decay=1e-4)
+        return params, opt, torch.stack([tot, parts["size"], parts["queue"],
+                                         parts["sldn"], gn])
+
+    cache = compiled.StepCache(TRACE_COUNTS, "train_step_legacy")
+
+    def build(params, opt, b):
+        return step_program(update, params, opt, b, per_sim=False, width=5)
+
+    def train_step(params, opt, b):
+        params, opt, outs = cache.run(array_key(b), b["t"].device, build,
+                                      params, opt, b)
+        tot, size, queue, sldn, gn = outs[0]
+        return params, opt, tot, {"size": size, "queue": queue,
+                                  "sldn": sldn}, gn
+    return train_step
+
+
+def train_m4(batches, cfg: M4Config, *, epochs=10, lr=3e-4, seed=0,
+             log=print, ablate_size=False, ablate_queue=False,
+             bucket_size=8, ckpt_dir=None, device="cuda"):
+    """Wrapper over `repro_torch.train.fit` with the seed trainer's
+    semantics: constant LR, one AdamW update per sim per epoch
+    (`step_mode="per_sim"`), no shuffle, one program per bucket shape.
+    Returns (TrainState, history)."""
+    from ..train import TrainConfig, fit
+    tc = TrainConfig(epochs=epochs, lr=lr, schedule="const", seed=seed,
+                     bucket_size=bucket_size, step_mode="per_sim",
+                     shuffle=False, ckpt_dir=ckpt_dir,
+                     w_size=0.0 if ablate_size else 1.0,
+                     w_queue=0.0 if ablate_queue else 1.0)
+    return fit(batches, cfg, tc, device=device, log=log)

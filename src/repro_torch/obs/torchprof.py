@@ -8,8 +8,9 @@ tracing is on) as a span:
 * ``phase.<name>.live_bytes``: the bytes the CUDA caching allocator holds
   for live tensors at phase exit (`live_array_bytes`);
 * ``phase.<name>.compiles``: the new compiled programs of the event
-  loops (`repro_torch.core.compiled`: a graph capture on a card, a
-  prepared eager step on the CPU) that the region built, read from the
+  loops and the training step (`repro_torch.core.compiled`: a graph
+  capture on a card, a prepared eager step on the CPU) that the region
+  built, read from the
   ``TRACE_COUNTS`` families through ``guards.trace_total``; a region that
   built any records its seconds as ``compile_wall_s``, else as
   ``wall_s``, as the JAX package's `jaxprof` does.

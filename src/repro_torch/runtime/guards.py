@@ -3,17 +3,17 @@
 
 `no_retrace` catches what a static check cannot see — an arena shape
 leaking into a key, a config that stopped comparing equal — from the
-`TRACE_COUNTS` counters of the two event loops, which move by one for
-each new compiled program (`repro_torch.core.compiled`: a captured CUDA
-graph on a card, a prepared eager step on the CPU). Wrap a stage that
+`TRACE_COUNTS` counters of the two event loops and of the training step,
+which move by one for each new compiled program
+(`repro_torch.core.compiled`: a captured CUDA graph on a card, a
+prepared eager step on the CPU). Wrap a stage that
 should reuse its programs:
 
     with no_retrace(allowed=1, label="sweep chunk"):
         backend.run_chunked(requests, chunk_size)
 
 `allowed` is the number of *new* programs the block may build; more
-raises `RetraceError` naming the counters that moved. The training step
-is not captured, so `train.loop` has no counter here.
+raises `RetraceError` naming the counters that moved.
 
 Finite checks are opt-in via REPRO_CHECK_FINITE=1 (they host-sync every
 leaf they inspect, so the call sites stay free no-ops by default):
@@ -45,10 +45,12 @@ class NonFiniteError(AssertionError):
 
 
 def _default_counters() -> Dict[str, Mapping[str, int]]:
-    """The port's two compile-counter families, imported lazily."""
+    """The port's three compile-counter families, imported lazily."""
     from ..core import flowsim_fast, simulate
+    from ..train import loop as train_loop
     return {"core.simulate": simulate.TRACE_COUNTS,
-            "core.flowsim_fast": flowsim_fast.TRACE_COUNTS}
+            "core.flowsim_fast": flowsim_fast.TRACE_COUNTS,
+            "train.loop": train_loop.TRACE_COUNTS}
 
 
 def trace_total(counters: Optional[Mapping[str, Mapping[str, int]]] = None,

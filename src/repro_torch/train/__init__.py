@@ -4,7 +4,10 @@ The port of `repro.train`: a content-hash dataset store of packet-DES
 ground truth over scenario specs (`build_dataset`), shape buckets
 (`make_buckets`), a checkpoint/auto-resume training loop with LR
 schedules, JAX's bucket order and per-epoch history (`fit`), held-out
-evaluation (`evaluate_m4`), and the one-call pipeline (`train_suite`):
+evaluation (`evaluate_m4`), and the one-call pipeline (`train_suite`).
+Each bucket shape trains through one compiled program (a CUDA graph of
+the update on a card), counted in `TRACE_COUNTS` as JAX counts its
+compiles:
 
     from repro_torch.scenarios import get_suite
     from repro_torch.train import TrainConfig, train_suite
@@ -21,13 +24,13 @@ package.
 from .batching import Bucket, make_buckets, pad_event_batch, stack_bucket
 from .data import (DatasetReport, DatasetStore, build_dataset, dataset_key,
                    dataset_key_from_shards, shard_key)
-from .loop import (TrainConfig, TrainState, evaluate_m4, fit, init_state,
-                   load_state, train_suite, write_train_log)
+from .loop import (TRACE_COUNTS, TrainConfig, TrainState, evaluate_m4, fit,
+                   init_state, load_state, train_suite, write_train_log)
 
 __all__ = [
     "Bucket", "make_buckets", "pad_event_batch", "stack_bucket",
     "DatasetStore", "DatasetReport", "build_dataset", "dataset_key",
     "dataset_key_from_shards", "shard_key",
-    "TrainConfig", "TrainState", "fit", "init_state", "load_state",
-    "evaluate_m4", "train_suite", "write_train_log",
+    "TrainConfig", "TrainState", "TRACE_COUNTS", "fit", "init_state",
+    "load_state", "evaluate_m4", "train_suite", "write_train_log",
 ]

@@ -2,13 +2,20 @@
 
 The port of `repro.train.loop`:
 
-- **Buckets.** The corpus is shape-bucketed (`train.batching`); each
-  bucket's tensors move to the device once.
+- **Bucketed compilation.** The corpus is shape-bucketed
+  (`train.batching`); each bucket's tensors move to the device once, and
+  each bucket shape trains through ONE compiled program
+  (`core.compiled.StepCache`): on a card one update (forward, backward,
+  clipping and AdamW in place) is captured as a CUDA graph and replayed;
+  on the CPU the same program runs eagerly. `TRACE_COUNTS` counts the
+  programs under the JAX package's key names, where JAX counts its
+  compiles: once per bucket-array shape per `fit` call.
 - **Two step semantics.** `step_mode="per_sim"` (default) applies one
-  AdamW update per sim, in bucket order: the seed trainer's schedule.
-  `step_mode="batch"` averages the losses of the bucket's sims into one
-  update. (The JAX package's pmap of the batch step across devices is not
-  ported.)
+  AdamW update per sim, in bucket order: the seed trainer's schedule,
+  one graph of one sim's update replayed once per sim of the bucket (a
+  counter on the device picks the sim). `step_mode="batch"` averages the
+  losses of the bucket's sims into one update. (The JAX package's pmap of
+  the batch step across devices is not ported.)
 - **The differentiated step** runs the plain versions of the GRU pair and
   the GNN (`core.training`), never the kernels, which define no backward.
 - **Resume.** `TrainState` (params + AdamW moments + step + RNG key) is
@@ -17,13 +24,17 @@ The port of `repro.train.loop`:
   restores the last committed epoch (rolling back past a corrupt one) and
   walks the same buckets, reproducing the uninterrupted run's parameters.
 - **Schedules & history.** Warmup+cosine LR over the true update count,
-  and one history entry per epoch with the JAX package's keys
-  (`compile_s` and `compiles` are 0: the training step runs eagerly).
+  and one history entry per epoch with the JAX package's keys: `wall_s`
+  splits into `compile_s` (the step calls that built a program, the
+  warm-up, capture and instantiation of its graph included) and `step_s`
+  (the replays), and `compiles` counts the programs the epoch built; an
+  optional held-out eval callback (`eval_fn`, every `eval_every`
+  epochs).
 - **Telemetry.** A `train.epoch` span per epoch (when tracing is on),
-  and `train.steps` / `train.step_wall_s` in the obs registry, whose
-  snapshot `train_suite` reports under `obs`. (`train.compiles` and
-  `train.compile_wall_s` stay absent: the training step runs eagerly, and
-  only the inference loops have compiled programs to count.)
+  and `train.steps`, `train.step_wall_s` and, in an epoch that built
+  programs, `train.compiles` / `train.compile_wall_s` in the obs
+  registry, whose snapshot `train_suite` reports under `obs`. The epochs
+  run under `no_retrace` with a budget of two programs per bucket shape.
 - **Evaluation.** `evaluate_m4` reports the per-flow slowdown error of
   m4 and of a baseline (flowSim) against the packet ground truth (§5.2),
   over scenario specs, with the ground truth cached by the sweep runner.
@@ -39,26 +50,34 @@ import dataclasses
 import json
 import os
 import time
+from collections import Counter
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import compiled
 from ..core.events import EventBatch
 from ..core.model import M4Config, init_m4
-from ..core.training import event_scan_losses
+from ..core.training import adamw_step, event_scan_losses
 from ..kernels import dispatch
 from ..obs.registry import get_registry
 from ..obs.trace import get_tracer
-from ..optim import adamw_init, adamw_update, clip_by_global_norm
+from ..optim import adamw_init
 from ..optim.schedules import linear_warmup_cosine
 from ..runtime import checkpoint as ckpt
-from ..runtime.guards import check_finite
+from ..runtime.guards import check_finite, no_retrace
 from ..sim.backends import resolve_device
-from ..weights import tree_digest, tree_map
+from ..weights import tree_digest, tree_leaves, tree_map
 from . import prng
 from .batching import make_buckets
+
+# Programs of the training step, by entry point, under the JAX package's
+# key names ("train_step", "train_step_legacy"): one count for each new
+# compiled program (`core.compiled.StepCache`), where JAX counts a
+# compile of its jitted step.
+TRACE_COUNTS = Counter()
 
 
 def prng_key(seed: int) -> np.ndarray:
@@ -140,8 +159,10 @@ class TrainConfig:
 
 def _make_schedule(tc: TrainConfig, total_updates: int):
     if tc.schedule == "const":
-        return lambda step: torch.tensor(tc.lr, dtype=torch.float32,
-                                         device=step.device)
+        # a fill on the device: a host tensor would be a copy that a
+        # graph capture refuses
+        return lambda step: torch.full_like(step, tc.lr,
+                                            dtype=torch.float32)
     if tc.schedule == "warmcos":
         warm = max(1, int(tc.warmup_frac * total_updates))
         fn = linear_warmup_cosine(tc.lr, warm, max(total_updates, 2),
@@ -163,59 +184,97 @@ def _sim_loss(params, m4cfg: M4Config, tc: TrainConfig, b):
     return tot, l
 
 
-def _value_and_grad(loss_fn, params):
-    """(loss, parts, grads) of loss_fn(params) -> (loss, parts)."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-    with torch.enable_grad():
-        tot, parts = loss_fn(leaves)
-        tot.backward()
-    grads = tree_map(lambda p: p.grad if p.grad is not None
-                     else torch.zeros_like(p), leaves)
-    return tot.detach(), {k: v.detach() for k, v in parts.items()}, grads
+def array_key(arrays: dict) -> tuple:
+    """What JAX's jit keys a step on, of its arrays: names, shapes and
+    dtypes."""
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in arrays.items())
+
+
+def step_program(update, params, opt, arrays, *, per_sim: bool,
+                 width: int) -> compiled.StepProgram:
+    """The program of one step shape. `update(params, opt, b) -> (params,
+    opt, row)` is one functional update (`row` a (width,) tensor);
+    `per_sim` walks the arrays' leading sim axis one update per sim, a
+    counter on the device picking the sim, else one update takes all of
+    `arrays`. The program owns copies of the weights, the moments and
+    the arrays; its body writes the new weights and moments over them and
+    the update's row into its row of `outs`. A call returns (params, opt,
+    outs) as new tensors."""
+    leaves = lambda t: [x for _, x in tree_leaves(t)]  # noqa: E731
+    p_buf = tree_map(torch.empty_like, params)
+    o_buf = tree_map(torch.empty_like, opt)
+    a_buf = {k: torch.empty_like(v) for k, v in arrays.items()}
+    dev = arrays["t"].device
+    replays = arrays["t"].shape[0] if per_sim else 1
+    outs = torch.zeros(replays, width, dtype=torch.float32, device=dev)
+    sim = torch.zeros(1, dtype=torch.int64, device=dev)
+    state = leaves(p_buf) + leaves(o_buf)
+
+    def load(params, opt, arrays):
+        with torch.no_grad():
+            for dst, src in zip(state, leaves(params) + leaves(opt)):
+                dst.copy_(src)
+            for k, v in arrays.items():
+                a_buf[k].copy_(v)
+            sim.zero_()
+
+    def body():
+        b = {k: v.index_select(0, sim)[0] for k, v in a_buf.items()} \
+            if per_sim else a_buf
+        new_p, new_o, row = update(p_buf, o_buf, b)
+        with torch.no_grad():
+            for dst, src in zip(state, leaves(new_p) + leaves(new_o)):
+                dst.copy_(src)
+            outs.index_copy_(0, sim, row[None])
+            sim.add_(1)
+
+    def result():
+        clone = lambda t: t.detach().clone()  # noqa: E731
+        return tree_map(clone, p_buf), tree_map(clone, o_buf), outs.clone()
+
+    return compiled.StepProgram(
+        load=load, body=body, result=result, replays=replays,
+        buffers=state + list(a_buf.values()) + [outs, sim])
 
 
 def make_bucket_step(m4cfg: M4Config, tc: TrainConfig, schedule) -> Callable:
-    """The training step for one bucket: `step(params, opt, arrays) ->
-    (params, opt, outs)` where `outs` is (updates, 6): [total, sldn, size,
-    queue, lr, grad_norm] per optimizer update."""
-    def update(params, opt, grads):
-        with torch.no_grad():
-            grads, gn = clip_by_global_norm(grads, tc.clip_norm)
+    """The compiled training step for one bucket: `step(params, opt,
+    arrays) -> (params, opt, outs)` where `outs` is (updates, 6): [total,
+    sldn, size, queue, lr, grad_norm] per optimizer update. Its programs
+    are cached by bucket shape in a `core.compiled.StepCache` of its own
+    (JAX's jit cache of the step it returns), so distinct padded shapes,
+    not distinct sims, cost programs, and the programs go with the step."""
+    def update_of(loss_fn):
+        def update(params, opt, b):
             lr = schedule(opt["step"])
-            params, opt = adamw_update(params, grads, opt, lr=lr,
-                                       weight_decay=tc.weight_decay)
-        return params, opt, lr, gn
-
-    def pack(tot, parts, lr, gn):
-        return torch.stack([tot, parts["sldn"], parts["size"],
-                            parts["queue"], lr, gn])
+            params, opt, tot, parts, gn = adamw_step(
+                lambda p: loss_fn(p, b), params, opt, lr=lr,
+                clip_norm=tc.clip_norm, weight_decay=tc.weight_decay)
+            return params, opt, torch.stack([
+                tot, parts["sldn"], parts["size"], parts["queue"], lr, gn])
+        return update
 
     if tc.step_mode == "per_sim":
-        def step(params, opt, bb):
-            outs = []
-            for i in range(bb["t"].shape[0]):
-                b = {k: v[i] for k, v in bb.items()}
-                tot, parts, grads = _value_and_grad(
-                    lambda p: _sim_loss(p, m4cfg, tc, b), params)
-                params, opt, lr, gn = update(params, opt, grads)
-                outs.append(pack(tot, parts, lr, gn))
-            return params, opt, torch.stack(outs)
-        return step
-
-    if tc.step_mode != "batch":
+        update = update_of(lambda p, b: _sim_loss(p, m4cfg, tc, b))
+    elif tc.step_mode == "batch":
+        def batch_loss(params, bb):
+            """Mean over the bucket's sims."""
+            tots, parts = _sim_loss(params, m4cfg, tc, bb)
+            return tots.mean(), {k: v.mean() for k, v in parts.items()}
+        update = update_of(batch_loss)
+    else:
         raise ValueError(f"unknown step_mode {tc.step_mode!r} "
                          "(want 'per_sim' or 'batch')")
+    per_sim = tc.step_mode == "per_sim"
+    cache = compiled.StepCache(TRACE_COUNTS, "train_step")
 
-    def batch_loss(params, bb):
-        """Mean over the bucket's sims."""
-        tots, parts = _sim_loss(params, m4cfg, tc, bb)
-        return tots.mean(), {k: v.mean() for k, v in parts.items()}
+    def build(params, opt, bb):
+        return step_program(update, params, opt, bb, per_sim=per_sim,
+                            width=6)
 
     def step(params, opt, bb):
-        tot, parts, grads = _value_and_grad(
-            lambda p: batch_loss(p, bb), params)
-        params, opt, lr, gn = update(params, opt, grads)
-        return params, opt, pack(tot, parts, lr, gn)[None]
+        return cache.run(array_key(bb), bb["t"].device, build,
+                         params, opt, bb)
     return step
 
 
@@ -244,21 +303,28 @@ def _read_history(ckpt_dir: str, epochs: int) -> List[dict]:
 
 def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
         tc: TrainConfig = TrainConfig(), *, state: Optional[TrainState] = None,
-        device="cuda", log=print) -> Tuple[TrainState, List[dict]]:
+        device="cuda", log=print, eval_fn: Optional[Callable] = None,
+        eval_every: int = 0) -> Tuple[TrainState, List[dict]]:
     """Train m4 on a corpus of `EventBatch`es on `device`; returns (state,
     history).
 
     history is one dict per epoch: {epoch, loss, sldn, size, queue, lr,
-    grad_norm, wall_s, compile_s, step_s, compiles}: `loss` is the
+    grad_norm, wall_s, compile_s, step_s, compiles[, eval]}: `loss` is the
     sim-weighted epoch mean of the combined objective, the per-head
-    entries its components, `step_s` the steps' wall time including the
-    device->host read of their outputs.
+    entries its components. `wall_s` splits into `compile_s` (bucket
+    steps that built a program: cold shapes, the warm-up, capture and
+    instantiation of the graph on a card included) and `step_s` (steady
+    steps); both include the device->host read of the step's outputs. The
+    same split streams into the obs registry (`train.compile_wall_s` /
+    `train.step_wall_s`). `eval_fn(params)`, with `eval_every` > 0, runs
+    after every `eval_every`-th epoch and the last, into `entry["eval"]`.
 
     With `tc.ckpt_dir` set, the run checkpoints every `ckpt_every` epochs
     and AUTO-RESUMES from the newest committed checkpoint that loads (same
     bucket walk, the uninterrupted run's outcome). A finished run restores
     and returns immediately. `state` (on any device) warm-starts a run
-    whose `ckpt_dir` holds no checkpoint.
+    whose `ckpt_dir` holds no checkpoint. The returned state's tensors
+    are the run's own: no later call writes them.
 
     With `tc.shuffle`, each epoch's bucket order is the JAX package's:
     `permutation(fold_in(rng, epoch), buckets)` of the state's key, by
@@ -275,6 +341,7 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
     schedule = _make_schedule(tc, tc.epochs * updates_per_epoch)
     step_fn = make_bucket_step(m4cfg, tc, schedule)
 
+    warm_start = state is not None
     if state is None:
         state = init_state(m4cfg, tc.seed, device)
     params = tree_map(lambda t: t.to(device), state.params)
@@ -283,6 +350,10 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
     history: List[dict] = []
     start_epoch = 0
     if tc.ckpt_dir and ckpt.latest_step(tc.ckpt_dir) is not None:
+        if warm_start:
+            log(f"[train] NOTE: ckpt_dir {tc.ckpt_dir} has a committed "
+                "checkpoint — it takes precedence over the passed `state` "
+                "(use a fresh ckpt_dir to warm-start from `state`)")
         try:
             tree, start_epoch, skipped = ckpt.restore_latest_loadable(
                 tc.ckpt_dir, {"params": params, "opt": opt, "rng": rng})
@@ -302,61 +373,90 @@ def fit(batches: Sequence[EventBatch], m4cfg: M4Config,
                 + (f" — recovered past {len(skipped)} corrupt "
                    "checkpoint(s)" if skipped else ""))
 
+    shapes = sorted({b.shape for b in buckets})
     if start_epoch < tc.epochs:
         log(f"[train] {len(batches)} sims -> {len(buckets)} bucket(s) "
-            f"{sorted({b.shape for b in buckets})}, {updates_per_epoch} "
-            f"update(s)/epoch x {tc.epochs} epochs [{tc.step_mode}] on "
-            f"{device}")
+            f"{shapes}, {updates_per_epoch} update(s)/epoch x "
+            f"{tc.epochs} epochs [{tc.step_mode}] on {device}")
 
+    # the program budget of the whole run: JAX's, one per bucket shape per
+    # step path (its tiny tail buckets can take a second jit). eval_fn
+    # builds in the simulator families, which this guard leaves out.
     reg = get_registry()
     tracer = get_tracer()
-    for ep in range(start_epoch, tc.epochs):
-        ep_span = tracer.span("train.epoch", attrs={"epoch": ep})
-        t0 = time.perf_counter()
-        order = np.arange(len(buckets), dtype=np.int64)
-        if tc.shuffle:
-            # by *absolute* epoch, so a resumed run replays the same walk
-            order = prng.permutation(prng.fold_in(rng, ep), len(buckets))
-        outs_all, weights = [], []
-        step_s = 0.0
-        for bi in order:
-            b = buckets[int(bi)]
-            ts = time.perf_counter()
-            # the differentiated step runs the plain versions (see above)
-            dispatch.count_dispatch(device, plain=True)
-            params, opt, outs = step_fn(params, opt, b.arrays)
-            outs = outs.cpu().numpy()    # waits for the device
-            step_s += time.perf_counter() - ts
-            check_finite(f"train step outs (epoch {ep})", outs)
-            outs_all.append(outs)
-            # per_sim: one row per sim; batch: one bucket-mean row
-            weights.append(np.full(len(outs), b.size / len(outs),
-                                   np.float64))
-        reg.inc("train.steps", len(order))
-        reg.observe("train.step_wall_s", step_s)
-        outs = np.concatenate(outs_all)
-        w = np.concatenate(weights)
-        mean = (outs * w[:, None]).sum(0) / w.sum()
-        entry = {"epoch": ep, "loss": float(mean[0]),
-                 "sldn": float(mean[1]), "size": float(mean[2]),
-                 "queue": float(mean[3]), "lr": float(outs[-1, 4]),
-                 "grad_norm": float(mean[5]),
-                 "wall_s": round(time.perf_counter() - t0, 3),
-                 "compile_s": 0.0, "step_s": round(step_s, 3),
-                 "compiles": 0}
-        history.append(entry)
-        log(f"[train] epoch {ep}: loss={entry['loss']:.4f} "
-            f"(sldn={entry['sldn']:.4f} size={entry['size']:.4f} "
-            f"queue={entry['queue']:.4f}) lr={entry['lr']:.2e} "
-            f"{entry['wall_s']:.1f}s")
-        ep_span.end(loss=entry["loss"], compiles=0, compile_s=0.0,
-                    step_s=entry["step_s"])
-        if tc.ckpt_dir and ((ep + 1) % tc.ckpt_every == 0
-                            or ep + 1 == tc.epochs):
-            ckpt.save(tc.ckpt_dir, ep + 1,
-                      {"params": params, "opt": opt, "rng": rng},
-                      keep_last=tc.keep_last)
-            _write_history(tc.ckpt_dir, history)
+    with no_retrace(allowed=2 * len(shapes),
+                    counters={"train.loop": TRACE_COUNTS}, label="fit"):
+        for ep in range(start_epoch, tc.epochs):
+            ep_span = tracer.span("train.epoch", attrs={"epoch": ep})
+            t0 = time.perf_counter()
+            order = np.arange(len(buckets), dtype=np.int64)
+            if tc.shuffle:
+                # by *absolute* epoch, so a resumed run replays the walk
+                order = prng.permutation(prng.fold_in(rng, ep), len(buckets))
+            outs_all, weights = [], []
+            compile_s = step_s = 0.0
+            ep_compiles = 0
+            for bi in order:
+                b = buckets[int(bi)]
+                c0 = sum(TRACE_COUNTS.values())
+                ts = time.perf_counter()
+                # the differentiated step runs the plain versions
+                dispatch.count_dispatch(device, plain=True)
+                params, opt, outs = step_fn(params, opt, b.arrays)
+                outs = outs.cpu().numpy()    # waits for the device
+                dt = time.perf_counter() - ts
+                new_programs = sum(TRACE_COUNTS.values()) - c0
+                if new_programs:
+                    compile_s += dt
+                    ep_compiles += new_programs
+                else:
+                    step_s += dt
+                check_finite(f"train step outs (epoch {ep})", outs)
+                outs_all.append(outs)
+                # per_sim: one row per sim; batch: one bucket-mean row
+                weights.append(np.full(len(outs), b.size / len(outs),
+                                       np.float64))
+            reg.inc("train.steps", len(order))
+            if ep_compiles:
+                reg.inc("train.compiles", ep_compiles)
+                reg.observe("train.compile_wall_s", compile_s)
+            reg.observe("train.step_wall_s", step_s)
+            outs = np.concatenate(outs_all)
+            w = np.concatenate(weights)
+            mean = (outs * w[:, None]).sum(0) / w.sum()
+            entry = {"epoch": ep, "loss": float(mean[0]),
+                     "sldn": float(mean[1]), "size": float(mean[2]),
+                     "queue": float(mean[3]), "lr": float(outs[-1, 4]),
+                     "grad_norm": float(mean[5]),
+                     "wall_s": round(time.perf_counter() - t0, 3),
+                     "compile_s": round(compile_s, 3),
+                     "step_s": round(step_s, 3),
+                     "compiles": ep_compiles}
+            if eval_fn is not None and eval_every and \
+                    ((ep + 1) % eval_every == 0 or ep + 1 == tc.epochs):
+                entry["eval"] = eval_fn(params)
+            history.append(entry)
+            log(f"[train] epoch {ep}: loss={entry['loss']:.4f} "
+                f"(sldn={entry['sldn']:.4f} size={entry['size']:.4f} "
+                f"queue={entry['queue']:.4f}) lr={entry['lr']:.2e} "
+                f"{entry['wall_s']:.1f}s"
+                + (f" (compile {entry['compile_s']:.1f}s)"
+                   if ep_compiles else ""))
+            ep_span.end(loss=entry["loss"], compiles=ep_compiles,
+                        compile_s=entry["compile_s"],
+                        step_s=entry["step_s"])
+            if tc.ckpt_dir and ((ep + 1) % tc.ckpt_every == 0
+                                or ep + 1 == tc.epochs):
+                ckpt.save(tc.ckpt_dir, ep + 1,
+                          {"params": params, "opt": opt, "rng": rng},
+                          keep_last=tc.keep_last)
+                _write_history(tc.ckpt_dir, history)
+                # test hook: a deterministic "kill" right after a
+                # checkpoint commits; os._exit skips every cleanup path,
+                # as a SIGKILL mid-run would
+                if os.environ.get("REPRO_TRAIN_ABORT_AFTER_EPOCH") \
+                        == str(ep + 1):
+                    os._exit(17)
 
     return TrainState(params=params, opt=opt, rng=rng), history
 
@@ -417,8 +517,8 @@ def train_suite(suite, m4cfg: M4Config, tc: TrainConfig = TrainConfig(), *,
 
     The one-call pipeline of the CLI (`python -m repro_torch.train`).
     Returns (TrainState, report) where `report` has the JAX package's
-    keys, `obs` (the process registry's snapshot) among them, but one:
-    `train.compiles` (the training step runs eagerly: nothing to count)."""
+    keys: `train.compiles` the programs `fit` built, and `obs` the process
+    registry's snapshot."""
     from .data import build_dataset
     device = resolve_device(device)
     t0 = time.perf_counter()
@@ -426,7 +526,9 @@ def train_suite(suite, m4cfg: M4Config, tc: TrainConfig = TrainConfig(), *,
     batches, data_report = build_dataset(specs, m4cfg, data_root,
                                          max_events=max_events,
                                          workers=workers, log=log)
+    c0 = sum(TRACE_COUNTS.values())
     state, history = fit(batches, m4cfg, tc, device=device, log=log)
+    compiles = sum(TRACE_COUNTS.values()) - c0
     report = {
         "suite": getattr(suite, "name", "corpus"),
         "num_sims": len(specs),
@@ -435,7 +537,8 @@ def train_suite(suite, m4cfg: M4Config, tc: TrainConfig = TrainConfig(), *,
         "dataset": {"key": data_report.corpus_key,
                     "hits": data_report.hits, "misses": data_report.misses,
                     "root": data_root},
-        "train": {"epochs": history, "updates": state.step,
+        "train": {"epochs": history, "compiles": compiles,
+                  "updates": state.step,
                   "compile_s": round(sum(e.get("compile_s", 0.0)
                                          for e in history), 3),
                   "step_s": round(sum(e.get("step_s", 0.0)

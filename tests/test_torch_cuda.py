@@ -10,7 +10,9 @@ exact: bitwise) and for the per-event water-filling (its link sums are
 exact: bitwise, rounds and capped too), 1e-4 relative for FCTs from the
 card against the CPU (kernels and CPU BLAS sum in other orders). The
 captured event loops (`repro_torch.core.compiled`) equal the eager ones
-bitwise: the same kernels in the same order."""
+bitwise, and so does `fit` through the captured training step (one CUDA
+graph of the update per bucket shape): the same kernels in the same
+order."""
 import numpy as np
 import pytest
 
@@ -609,3 +611,81 @@ def test_flowsim_fast_fleet_equals_inprocess_on_card(card, tmp_path):
         a, b = fleet_store.get(k), ref.get(k)
         assert a.fcts.tobytes() == b.fcts.tobytes()
         assert a.slowdowns.tobytes() == b.slowdowns.tobytes()
+
+
+def _train_corpus(cfg):
+    """Three gate-scale sims in two bucket shapes at bucket_size 2."""
+    from repro_torch.core.events import build_event_batch
+    return [build_event_batch(get_backend("packet").run(
+        SimRequest.from_scenario(sample_scenario(s, num_flows=n))).raw, cfg,
+        max_events=k) for s, n, k in ((0, 30, 40), (1, 30, 40), (2, 40, 60))]
+
+
+@pytest.mark.parametrize("mode", ["per_sim", "batch"])
+def test_compiled_fit_equals_eager_fit_bitwise(card, mode):
+    """`fit` through the captured training programs (one CUDA graph of the
+    update per bucket shape, replayed) gives the eager step's weights,
+    moments and losses bitwise, from one state, over two bucket shapes
+    and two epochs; it builds one program per shape, the eager twin
+    none, and launches no kernel wrapper."""
+    from repro_torch.core import compiled
+    from repro_torch.train import TRACE_COUNTS, TrainConfig, fit, init_state
+    from repro_torch.weights import tree_digest
+    cfg = M4Config(**GATE)
+    batches = _train_corpus(cfg)
+    tc = TrainConfig(epochs=2, lr=1e-3, bucket_size=2, step_mode=mode)
+    n = _launch_counts()
+    c0 = TRACE_COUNTS["train_step"]
+    state, hist = fit(batches, cfg, tc, state=init_state(cfg, 0, card),
+                      device=card, log=lambda *a: None)
+    assert TRACE_COUNTS["train_step"] == c0 + 2
+    assert [h["compiles"] for h in hist] == [2, 0]
+    with compiled.eager():
+        ref, rhist = fit(batches, cfg, tc, state=init_state(cfg, 0, card),
+                         device=card, log=lambda *a: None)
+    assert TRACE_COUNTS["train_step"] == c0 + 2
+    assert _launch_counts() == n
+    assert tree_digest(state.tree()) == tree_digest(ref.tree())
+    for h, r in zip(hist, rhist):
+        for k in ("loss", "sldn", "size", "queue", "lr", "grad_norm"):
+            assert h[k] == r[k], k
+
+
+def test_captured_step_replays_with_no_host_sync(card):
+    """A step's first call captures its program; a second call replays it
+    (no new program, one graph launch per sim) and makes no host sync and
+    no `.item()` until its outputs are read."""
+    from repro_torch.core import compiled
+    from repro_torch.train import TRACE_COUNTS, TrainConfig, init_state
+    from repro_torch.train.batching import stack_bucket
+    from repro_torch.train.loop import _make_schedule, make_bucket_step
+    cfg = M4Config(**GATE)
+    bb = {k: v.to(card) for k, v in stack_bucket(
+        _train_corpus(cfg)[:2]).items()}
+    tc = TrainConfig(lr=1e-3)
+    step = make_bucket_step(cfg, tc, _make_schedule(tc, 4))
+    st = init_state(cfg, 0, card)
+    c0 = TRACE_COUNTS["train_step"]
+    p1, o1, outs1 = step(st.params, st.opt, bb)
+    (e,) = [e for e in compiled.entries() if e["entry"] == "train_step"
+            and e["calls"] == 1]
+    assert e["graphs"] == ["update"] and e["replays_per_call"] == 2
+    assert e["pool_bytes"] > 0 and e["capture_s"] > 0
+    torch.cuda.synchronize()
+    items = []
+    real_item = torch.Tensor.item
+
+    def item(self):
+        items.append(self.shape)
+        return real_item(self)
+
+    torch.Tensor.item = item
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p2, o2, outs2 = step(p1, o1, bb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.Tensor.item = real_item
+    assert items == [] and TRACE_COUNTS["train_step"] == c0 + 1
+    assert int(o2["step"]) == 4 and outs2.shape == (2, 6)
+    assert bool(torch.isfinite(outs2).all())

@@ -9,7 +9,7 @@ read it, against the JAX package's, on the CPU.
   shape inside `no_retrace(allowed=0)` raises naming
   `core.simulate.open_loop` or `core.flowsim_fast.event_scan_batched`,
   and a repeat shape passes;
-- `trace_total` sums the families;
+- `trace_total` sums the families, the same three as JAX's;
 - `obs.phase` splits `phase.<name>.compiles` and `compile_wall_s` from
   `wall_s` as `jaxprof.phase` does;
 - `SweepRunner` runs its misses under `no_retrace(allowed=chunks)`: a
@@ -38,6 +38,7 @@ from repro_torch.obs.torchprof import phase as tphase  # noqa: E402
 from repro_torch.runtime import guards as tguards  # noqa: E402
 from repro_torch.scenarios import ScenarioSpec, SweepRunner  # noqa: E402
 from repro_torch.scenarios import get_suite  # noqa: E402
+from repro_torch.train import loop as ttrain  # noqa: E402
 from repro_torch.sim import get_backend  # noqa: E402
 
 GUARD_KEYS = ("guards.no_retrace.blocks", "guards.no_retrace.compiles",
@@ -98,10 +99,11 @@ def test_no_retrace_matches_jax(allowed, bumps, label):
 def test_trace_total_sums_the_families():
     fams = {"a": Counter(x=2, y=1), "b": Counter(z=4)}
     assert tguards.trace_total(fams) == jguards.trace_total(fams) == 7
-    assert set(tguards._default_counters()) == {"core.simulate",
-                                                "core.flowsim_fast"}
+    assert set(tguards._default_counters()) == \
+        set(jguards._default_counters()) == \
+        {"core.simulate", "core.flowsim_fast", "train.loop"}
     assert tguards.trace_total() == sum(tsim.TRACE_COUNTS.values()) \
-        + sum(tff.TRACE_COUNTS.values())
+        + sum(tff.TRACE_COUNTS.values()) + sum(ttrain.TRACE_COUNTS.values())
 
 
 @pytest.mark.parametrize("name", ["m4", "flowsim_fast"])

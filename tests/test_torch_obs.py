@@ -13,8 +13,10 @@
   torn tail included;
 - `python -m repro_torch.obs --merge ... --prom` prints what JAX's does;
 - the sweep runner counts its cache hits and misses and its
-  `sweep.simulate` phase; `fit` counts its steps and the plain dispatch;
-  the port's `phase` records what JAX's records.
+  `sweep.simulate` phase; `fit` counts its steps, the plain dispatch and
+  its programs (`train.compiles`, `train.compile_wall_s`) as JAX's `fit`
+  counts its steps and compiles; the port's `phase` records what JAX's
+  records.
 """
 import contextlib
 import io
@@ -289,24 +291,41 @@ def test_phase_records_as_jax():
 
 
 def test_fit_counts_steps_and_the_plain_dispatch():
+    from repro.core.events import EventBatch as JaxEventBatch
+    from repro.core.model import M4Config as JaxM4Config
+    from repro.train.loop import TrainConfig as JaxTrainConfig
+    from repro.train.loop import fit as jax_fit
     from repro_torch.core.events import build_event_batch
     from repro_torch.core.model import M4Config
     from repro_torch.data.traffic import sample_scenario
     from repro_torch.net.packetsim import PacketSim
     from repro_torch.train.loop import TrainConfig, fit
-    cfg = M4Config(hidden=8, gnn_dim=8, mlp_hidden=8, gnn_layers=1,
-                   snap_flows=8, snap_links=16)
+    widths = dict(hidden=8, gnn_dim=8, mlp_hidden=8, gnn_layers=1,
+                  snap_flows=8, snap_links=16)
+    cfg = M4Config(**widths)
     batches = []
     for seed in (1, 2):
         sc = sample_scenario(seed, num_flows=6)
         trace = PacketSim(sc.topo, sc.config).run(sc.generate())
         batches.append(build_event_batch(trace, cfg))
+    kw = dict(epochs=2, bucket_size=1, seed=0)
+    jr = jreg.get_registry()
+    jbefore = dict(jr.snapshot()["counters"])
+    jax_fit([JaxEventBatch.from_arrays(b.to_arrays()) for b in batches],
+            JaxM4Config(**widths), JaxTrainConfig(**kw), log=lambda *_: None)
+    jafter = jr.snapshot()
     before = _counters()
-    fit(batches, cfg, TrainConfig(epochs=2, bucket_size=1, seed=0),
-        device="cpu", log=lambda *_: None)
+    fit(batches, cfg, TrainConfig(**kw), device="cpu", log=lambda *_: None)
     after = _counters()
     assert after.get("train.steps", 0) - before.get("train.steps", 0) == 4
     key = 'kernels.dispatch{mode="plain"}'
     assert after.get(key, 0) - before.get(key, 0) == 4
-    assert "train.compiles" not in after
-    assert "train.step_wall_s" in obs.get_registry().snapshot()["histograms"]
+    # one program per bucket shape, in the first epoch, as JAX compiles
+    jcompiles = jafter["counters"]["train.compiles"] \
+        - jbefore.get("train.compiles", 0)
+    assert jcompiles == len({b.footprint for b in batches}) == 2
+    assert after["train.compiles"] - before.get("train.compiles", 0) \
+        == jcompiles
+    hists = obs.get_registry().snapshot()["histograms"]
+    for name in ("train.step_wall_s", "train.compile_wall_s"):
+        assert name in hists and name in jafter["histograms"]
