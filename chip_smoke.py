@@ -19,9 +19,12 @@ Phases, each printing one JSON line:
                  and 80/96/128 links, B = 4 padded, 60000 flows (its
                  device-memory placement) and the real states with the
                  most rounds and the most active flows over the first 1000
-                 events of flowsim_fast's `run`, bitwise against its plain
-                 version and a second launch): errors, device times (CUDA-graph replay,
-                 so host overhead is excluded), bound, library call;
+                 events of flowsim_fast's `run`, and the same two states
+                 of a 2000-flow run on the §5.2 fabric, 18432 links, in
+                 the device-memory placement; bitwise against its plain
+                 version and a second launch): errors, device times
+                 (CUDA-graph replay, so host overhead is excluded), bound,
+                 library call;
 4. full        — m4 at the paper's full width (M4Config defaults, seeded
                  random weights): `run` of one 2000-flow Table-2 scenario,
                  then `run_many` of four, through get_backend("m4"); then
@@ -77,7 +80,7 @@ Phases, each printing one JSON line:
                  --check` over the spans and the 16 probe files;
 9. train       — m4's training path at full width: the packet DES on two
                  Table-2 scenario specs, cut from 2000 to TRAIN_FLOWS =
-                 1000 flows (K = 2000 events each), and their event
+                 500 flows (K = 1000 events each), and their event
                  tensors (build_dataset); `fit` per sim (two epochs, two
                  updates each, one bucket shape, the TrainConfig defaults)
                  through the compiled step (one CUDA graph of the update
@@ -94,7 +97,7 @@ Phases, each printing one JSON line:
                  event, timed and profiled (40 events), and a compiled
                  step over the same events captured, replayed and
                  profiled (kernels per event, device busy share); batch
-                 mode the same way (both sims cut to 1000 events, two
+                 mode the same way (both sims cut to 500 events, two
                  epochs of one update); one update on the card against
                  the CPU (200 events); resume from a checkpoint against
                  an uninterrupted run, bitwise, each fit that trains
@@ -152,12 +155,34 @@ Phases, each printing one JSON line:
                  with no launch and no capture; /metrics and /healthz;
                  a drained close resolves a part bucket; a second service
                  with no cache replays the captured programs (0
-                 captures). Requests/s, p50/p99 latency and queue delay.
+                 captures). Requests/s, p50/p99 latency and queue delay;
+13. fabric     — m4 at full width and flowsim_fast on the paper's §5.2
+                 topology, `meta_fabric()` (6144 hosts, 384 racks, 8
+                 spines, 18432 links), through the backends' `run`: at
+                 FABRIC_FLOWS = 2000 flows, captured against the eager
+                 loop (bitwise, one capture then none, launch counts), with
+                 events/s, launches per event, the peak memory the runs
+                 add to what is allocated before them and, for
+                 flowsim_fast, the water-filling placement and its bytes;
+                 profiles (busy share: m4's event step on 200 flows times
+                 the unprofiled rate, flowsim_fast's 2000-flow run); one
+                 captured `run` of each at FABRIC_SCALE_FLOWS = 10000
+                 flows (its rate against the 2000-flow one); the card
+                 against the CPU at FABRIC_CPU_FLOWS = 200 flows (m4 at
+                 rtol 1e-4 up to one float32 ulp of the completion time,
+                 flowsim_fast bitwise);
+14. files      — the port's file formats on this machine (no msgpack,
+                 zstandard or ml_dtypes): a tree with a torch.bfloat16
+                 CUDA leaf through the checkpoint's save and restore,
+                 bitwise, one tree_digest before and after; a bare
+                 (pre-envelope) zlib blob of the port's codec read by
+                 ResultCache as a hit that stays in place.
 
 Then the `kernels` line (each kernel's launches on the full-size `run`,
 on the probed `run`s, in the train phase's evaluation, in the sweeps, in
-the workers of the fleet phase's two clean fleets and in the serve
-phase's first round), the card's nvidia-smi line, and last
+the workers of the fleet phase's two clean fleets, in the serve phase's
+first round and in the fabric phase's two captured 2000-flow `run`s),
+the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits nonzero and prints no result; so it does with no CUDA device, or
 when run outside the repository. Imports nothing of JAX. The fleet's
@@ -184,7 +209,7 @@ PORT_KERNELS = ("gru_pair_kernel", "bipartite_rounds_kernel",
 GRU_TOL = 1e-5
 GNN_TOL = 1e-4
 FCT_RTOL = 1e-4
-TRAIN_FLOWS = 1000     # flows of the train phase's sims (see phase_train)
+TRAIN_FLOWS = 500      # flows of the train phase's sims (see phase_train)
 SWEEP_FLOWS = 200      # smoke16's base flow count in the sweep phase
 CLI_FLOWS = 500        # flows of the training CLI's sims (sweep phase)
 PROBE_STRIDE = 4       # probes phase: a sample every 4 events ...
@@ -192,6 +217,9 @@ PROBE_SAMPLES = 256    # ... into a ring of 256, which wraps at 2000 flows
 PROBE_RTOL = 1e-5      # a batched series against its scenario's own run
 SERVE_FLOWS = (500, 2000)  # serve phase: one shape bucket per flow count
 SERVE_UNIQUE = 8           # ... holding 8 unique specs each
+FABRIC_FLOWS = 2000        # fabric phase: meta_fabric() captured vs eager
+FABRIC_SCALE_FLOWS = 10000  # ... one captured run of each at this scale
+FABRIC_CPU_FLOWS = 200     # ... the card against the CPU at this scale
 FLEET_CHUNK = 4            # fleet phase: smoke16 in 4 tasks of 4 specs
 # a worker-targeted fault fires only in a worker that claims a task, so
 # the kill targets both workers of the pool: the first to claim dies
@@ -534,10 +562,12 @@ def event_case(torch, g, dev, B, N, L, real=None):
     return a, cap, active
 
 
-def phase_event(torch, np, dev, req):
+def phase_event(torch, np, dev, req, fabric_req):
     """The per-event water-filling against its plain version, bitwise (rates,
-    rounds, capped), and against a second launch. Returns the entry of
-    the real state with the most rounds."""
+    rounds, capped), and against a second launch; the real states include
+    two of `fabric_req`, on the §5.2 fabric (18432 links: the
+    device-memory placement). Returns the entry of the 8-rack real state
+    with the most rounds."""
     from repro_torch.kernels.waterfill import layout as wf_layout
     from repro_torch.kernels.waterfill import ops as wf_ops
     from repro_torch.kernels.waterfill import ref as wf_ref
@@ -552,10 +582,11 @@ def phase_event(torch, np, dev, req):
         real=[(2000, 96), (1200, 80), (600, 128), (1900, 80)]), {}))
     cases.append(("B1_N60000_L128", *event_case(torch, g, dev, 1, 60000,
                                                 128), {}))
-    a_real, cap_real, picks = flowsim_states(torch, np, dev, req)
-    for tag, (e, act, _, n) in picks.items():
-        cases.append((f"real_{tag}", a_real, cap_real, act,
-                      {"event": e, "events_scanned": 1000, "active": n}))
+    for prefix, r in (("real", req), ("fabric_real", fabric_req)):
+        a_real, cap_real, picks = flowsim_states(torch, np, dev, r)
+        for tag, (e, act, _, n) in picks.items():
+            cases.append((f"{prefix}_{tag}", a_real, cap_real, act,
+                          {"event": e, "events_scanned": 1000, "active": n}))
     entry = None
     for tag, a, cap, active, extra in cases:
         lists = wf_layout.incidence_lists(a)
@@ -730,7 +761,10 @@ def captured_vs_eager(torch, np, name, call, want, label):
     c1 = sum(tc.values())
     again, counts2, wall2 = run_counted(torch, call)
     c2 = sum(tc.values())
-    entry = compiled.entries()[-1]
+    # the newest entry of the loops (a live training step's entries,
+    # listed after them, carry replays_per_call)
+    entry = [e for e in compiled.entries()
+             if "replays_per_call" not in e][-1]
     with compiled.eager():
         eager, ecounts, ewall = run_counted(torch, call)
     if sum(tc.values()) != c2:
@@ -780,7 +814,8 @@ def phase_full(torch, np, name, backend, req, reqs, want_per_event, smi):
     return out
 
 
-def phase_profile(torch, name, backend, req, smi, events_per_s=None):
+def phase_profile(torch, name, backend, req, smi, events_per_s=None,
+                  cell="8-rack"):
     """Where the time goes: one run under the profiler (`req`, or a list
     of requests for one padded `run_many`, whose events are batched
     events). With the events/s of the same run unprofiled, also the busy
@@ -808,7 +843,8 @@ def phase_profile(torch, name, backend, req, smi, events_per_s=None):
         for k in PORT_KERNELS:
             if k in e.name:
                 ours[k] = ours.get(k, 0.0) + e.device_time_total / events
-    emit("profile", path=name, flows=[r.num_flows for r in reqs],
+    emit("profile", path=name, cell=cell,
+         flows=[r.num_flows for r in reqs],
          scenarios=len(reqs), events=events,
          wall_s=wall,
          cuda_kernels_per_event=len(kernels) / events if kernels else None,
@@ -1218,8 +1254,9 @@ def phase_train(torch, np, cfg, dev, smi):
 
     # ---- ground truth: the packet DES on two Table-2 scenarios, cut from
     # 2000 to TRAIN_FLOWS flows to keep the phase near three minutes (a
-    # full-width update costs ~14-19 ms per event on the host), through
-    # the dataset store
+    # full-width eager update costs ~9-11 ms per event, and building its
+    # program ~40-60 ms per event; tools/train_capture.py times K = 2000),
+    # through the dataset store
     cut_flows = f"num_flows 2000 -> {TRAIN_FLOWS}"
     specs = [random_spec(s, num_flows=TRAIN_FLOWS) for s in (0, 1)]
     with tempfile.TemporaryDirectory() as store:
@@ -1394,10 +1431,10 @@ def phase_train(torch, np, cfg, dev, smi):
          card=smi)
     del step, p1, o1, p2, o2, st0, bb, b0
 
-    # ---- batch mode: one bucket of both sims, cut to 1000 events
-    cut = [b.head(1000) for b in batches]
+    # ---- batch mode: one bucket of both sims, cut to TRAIN_FLOWS events
+    cut = [b.head(TRAIN_FLOWS) for b in batches]
     fit_pair("fit_batch", cut, TrainConfig(epochs=2, step_mode="batch"),
-             cut=f"{cut_flows}, max_events=1000")
+             cut=f"{cut_flows}, max_events={TRAIN_FLOWS}")
 
     # ---- the card against the CPU: one per-sim update, 200 events
     tc = TrainConfig(epochs=1, shuffle=False)
@@ -2132,6 +2169,222 @@ def phase_serve(torch, np, params, cfg, smi):
     return counts1
 
 
+def fabric_placement(np, dev, req):
+    """The water-filling placement `layout.plan` chooses for flowsim_fast's
+    incidence of req: (placement, smem_bytes, scratch_bytes, N, L, K,
+    nnz)."""
+    from repro_torch.core import flowsim_fast as ff
+    from repro_torch.kernels.waterfill import layout as wf_layout
+    a = ff._to_device([ff._pack(req.topo, list(req.flows))], dev)[0]
+    lists = wf_layout.incidence_lists(a)
+    N, L, K = a.shape[1], a.shape[2], lists.flow_links.shape[2]
+    smem, scratch = wf_layout.plan(N, L, K, lists.nnz)
+    return ("shared memory" if smem else "device memory", smem, scratch, N,
+            L, K, lists.nnz)
+
+
+def peak_mark(torch):
+    """The device memory allocated now, with the peak reset to it: what
+    live tensors (the programs earlier phases cached) hold before a run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_run(torch, fn):
+    """fn() with the launch counters at 0 (`run_counted`), and the peak
+    device memory it allocated above what was allocated before it."""
+    base = peak_mark(torch)
+    out, counts, wall = run_counted(torch, fn)
+    return out, counts, wall, torch.cuda.max_memory_allocated() - base
+
+
+def phase_fabric(torch, np, m4, fs, params, cfg, dev, smi):
+    """m4 and flowsim_fast on the paper's §5.2 fabric (`meta_fabric()`:
+    6144 hosts, 384 racks, 8 spines, 18432 links) at full width, through
+    the backends' `run`: at FABRIC_FLOWS, captured (a capture, then a
+    replay) against the eager loop, bitwise, with events/s, peak memory,
+    launches per event and, for flowsim_fast, the water-filling placement;
+    a profile of each (busy share); one captured `run` of each at
+    FABRIC_SCALE_FLOWS; then the card against the CPU at FABRIC_CPU_FLOWS
+    (m4 at rtol 1e-4 up to one float32 ulp of the completion time,
+    flowsim_fast bitwise). Returns the launches of the two captured
+    FABRIC_FLOWS `run`s."""
+    from repro_torch.data.traffic import sample_scenario
+    from repro_torch.net import meta_fabric
+    from repro_torch.sim import SimRequest, get_backend
+    from repro_torch.weights import params_to
+
+    topo = meta_fabric()
+    emit("fabric", step="topology", hosts=topo.num_hosts,
+         racks=topo.num_racks, spines=topo.num_spines, links=topo.num_links,
+         oversub=topo.oversub)
+
+    def req_of(seed, n):
+        return SimRequest.from_scenario(sample_scenario(seed, num_flows=n,
+                                                        topo=topo))
+
+    t_phase = time.perf_counter()
+    total = launches()
+    rates = {}
+    for name, backend, per_event in (("m4", m4, launches(2, 1)),
+                                     ("flowsim_fast", fs, launches(event=1))):
+        req = req_of(0, FABRIC_FLOWS)
+        events = 2 * req.num_flows
+        want = {k: v * events for k, v in per_event.items()}
+        base = peak_mark(torch)
+        res, counts, m = captured_vs_eager(torch, np, name,
+                                           lambda: [backend.run(req)], want,
+                                           f"fabric {name} run")
+        peak = torch.cuda.max_memory_allocated() - base
+        check_fcts(np, res, [req])
+        for k, v in counts.items():
+            total[k] += v
+        rates[name] = events / m["wall_s"]
+        extra = {}
+        if name == "flowsim_fast":
+            place, smem, scratch, N, L, K, nnz = fabric_placement(np, dev,
+                                                                  req)
+            extra = dict(waterfill_placement=place, smem_bytes=smem,
+                         scratch_bytes=scratch, waterfill_shape=[1, N, L],
+                         K=K, nnz=nnz)
+        emit("fabric", path=name, entry="run", flows=req.num_flows,
+             links=req.topo.num_links, events=events,
+             events_per_s=rates[name],
+             events_per_s_capture_call=events / m["capture_call_wall_s"],
+             eager_events_per_s=events / m["eager_wall_s"],
+             captured_over_eager=m["eager_wall_s"] / m["wall_s"],
+             launches=counts,
+             launches_per_event={k: v / events for k, v in counts.items()},
+             peak_added_bytes=peak, **m, **extra, card=smi)
+
+    # busy share: m4's event step on a short run of the fabric (device
+    # time per event x the unprofiled events/s above), flowsim_fast's
+    # FABRIC_FLOWS run itself
+    phase_profile(torch, "m4", m4, req_of(3, FABRIC_CPU_FLOWS), smi,
+                  rates["m4"], cell="fabric")
+    phase_profile(torch, "flowsim_fast", fs, req_of(0, FABRIC_FLOWS), smi,
+                  rates["flowsim_fast"], cell="fabric")
+
+    # the rate at FABRIC_SCALE_FLOWS: one captured run (its capture of
+    # one event step included)
+    for name, backend, per_event in (("m4", m4, launches(2, 1)),
+                                     ("flowsim_fast", fs, launches(event=1))):
+        req = req_of(1, FABRIC_SCALE_FLOWS)
+        events = 2 * req.num_flows
+        tc = trace_counts(name)
+        c0 = sum(tc.values())
+        (res,), counts, wall, peak = peak_run(torch,
+                                              lambda: [backend.run(req)])
+        want = {k: v * events for k, v in per_event.items()}
+        if counts != want or sum(tc.values()) - c0 != 1:
+            raise AssertionError(f"fabric {name} at {req.num_flows} flows: "
+                                 f"launches {counts}, expected {want}; "
+                                 f"captures {sum(tc.values()) - c0}")
+        check_fcts(np, [res], [req])
+        extra = {}
+        if name == "flowsim_fast":
+            place, smem, scratch, N, L, K, nnz = fabric_placement(np, dev,
+                                                                  req)
+            extra = dict(waterfill_placement=place, smem_bytes=smem,
+                         scratch_bytes=scratch, K=K, nnz=nnz)
+        emit("fabric", path=name, entry="run", flows=req.num_flows,
+             links=req.topo.num_links, events=events,
+             events_per_s_capture_call=events / wall, wall_s=wall,
+             includes_capture=True, launches=counts, peak_added_bytes=peak,
+             rate_over_fabric_flows=(events / wall) / rates[name], **extra,
+             card=smi)
+
+    # the card against the CPU
+    creq = req_of(5, FABRIC_CPU_FLOWS)
+    arr = np.array([f.t_arrival for f in creq.flows])
+    cpu_m4 = get_backend("m4", params=params_to(params, "cpu"), cfg=cfg,
+                         device="cpu")
+    cpu_fs = get_backend("flowsim_fast", device="cpu")
+    for name, card, cpu in (("m4", m4, cpu_m4), ("flowsim_fast", fs,
+                                                  cpu_fs)):
+        got = card.run(creq).fcts
+        t0 = time.perf_counter()
+        want = cpu.run(creq).fcts
+        cpu_s = time.perf_counter() - t0
+        rel = np.abs(got - want) / np.abs(want)
+        ulp = np.spacing((arr + want).astype(np.float32)).astype(np.float64)
+        if name == "flowsim_fast":
+            ok = got.tobytes() == want.tobytes()
+        else:
+            ok = bool((np.abs(got - want) <= FCT_RTOL * np.abs(want)
+                       + ulp).all())
+        emit("fabric", step="cpu", path=name, flows=creq.num_flows,
+             max_rel_fct_diff=float(rel.max()),
+             bitwise_equal=bool(got.tobytes() == want.tobytes()),
+             rtol=FCT_RTOL, cpu_wall_s=cpu_s)
+        if not ok:
+            raise AssertionError(f"fabric {name}: card and CPU FCTs differ "
+                                 f"(max rel {rel.max()})")
+    emit("fabric", step="phase", seconds=time.perf_counter() - t_phase,
+         card=smi)
+    return total
+
+
+def phase_files(torch, np, dev):
+    """The port's file formats on the machine with the card (no msgpack,
+    no zstandard, no ml_dtypes): a tree with a `torch.bfloat16` CUDA leaf
+    through the checkpoint's save and restore, bitwise, with one
+    `tree_digest` before and after; a bare (pre-envelope) zlib blob of
+    the port's codec read by the result cache as a hit that stays in
+    place."""
+    import tempfile
+
+    from repro_torch.runtime import blobstore, checkpoint, codec
+    from repro_torch.scenarios.cache import ResultCache
+    from repro_torch.sim import SimResult
+    from repro_torch.weights import tree_digest
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    tree = {"w": torch.randn(64, 48, generator=g, device=dev).to(
+        torch.bfloat16), "b": torch.randn(48, generator=g, device=dev),
+        "step": torch.tensor(3, dtype=torch.int32, device=dev)}
+    tree["w"].view(-1)[:3] = torch.tensor([float("inf"), -0.0, 1e-40],
+                                          device=dev).to(torch.bfloat16)
+    like = {k: torch.zeros_like(v) for k, v in tree.items()}
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, 1, tree)
+        got, step = checkpoint.restore(d, like)
+    same = all(got[k].device == tree[k].device and got[k].dtype ==
+               tree[k].dtype and torch.equal(
+                   got[k].view(torch.int16) if k == "w" else got[k],
+                   tree[k].view(torch.int16) if k == "w" else tree[k])
+               for k in tree)
+    digest_same = tree_digest(got) == tree_digest(tree)
+    if not (same and digest_same and step == 1):
+        raise AssertionError(f"bf16 checkpoint: bitwise {same}, digest "
+                             f"{digest_same}, step {step}")
+
+    res = SimResult(fcts=np.linspace(1e-6, 2e-5, 16),
+                    slowdowns=np.linspace(1.0, 4.0, 16), wall_time=0.25,
+                    backend="stub")
+    with tempfile.TemporaryDirectory() as d:
+        store = ResultCache(d)
+        path = store._path("ab" * 32)
+        os.makedirs(os.path.dirname(path))
+        with open(path, "wb") as f:
+            f.write(blobstore._compress(codec.packb(store._encode(res))))
+        back = store.get("ab" * 32)
+        stays = os.path.exists(path) and not os.path.exists(
+            path + ".corrupt")
+    hit = back is not None and back.fcts.tobytes() == res.fcts.tobytes() \
+        and back.slowdowns.tobytes() == res.slowdowns.tobytes()
+    if not (hit and stays):
+        raise AssertionError(f"legacy blob: hit {hit}, in place {stays}")
+    mods = sorted({m.split(".")[0] for m in sys.modules} & {
+        "msgpack", "zstandard", "ml_dtypes", "jax", "jaxlib", "repro"})
+    emit("files", bf16_checkpoint_bitwise=True, bf16_digest_equal=True,
+         legacy_blob_hit=True, legacy_blob_in_place=True,
+         forbidden_modules=mods)
+    if mods:
+        raise AssertionError(f"imported {mods}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2143,6 +2396,7 @@ def main() -> int:
     from repro_torch.core.probes import ProbeConfig
     from repro_torch.data.traffic import sample_scenario
     from repro_torch.kernels import build
+    from repro_torch.net import meta_fabric
     from repro_torch.sim import SimRequest, get_backend
     from repro_torch.weights import params_to
 
@@ -2176,7 +2430,9 @@ def main() -> int:
     fs_req = req_of(1)          # the seed where the 32-round cap binds
     entries["masked_rowmin"] = phase_rowmin(
         torch, dev, (1, fs_req.num_flows, fs_req.topo.num_links))
-    entries["waterfill_event"] = phase_event(torch, np, dev, fs_req)
+    entries["waterfill_event"] = phase_event(
+        torch, np, dev, fs_req, SimRequest.from_scenario(sample_scenario(
+            0, num_flows=FABRIC_FLOWS, topo=meta_fabric())))
 
     # ---- the main paths at full size; warm-ups (cuBLAS handles,
     # allocator pools) are not counted
@@ -2229,6 +2485,8 @@ def main() -> int:
     sweep_launches = phase_sweep(torch, np, m4, fs, params, cfg, smi)
     fleet_launches = phase_fleet(torch, np, m4, fs, smi)
     serve_launches = phase_serve(torch, np, params, cfg, smi)
+    fabric_launches = phase_fabric(torch, np, m4, fs, params, cfg, dev, smi)
+    phase_files(torch, np, dev)
 
     sources = {"fused_gru_pair": ("src/repro_torch/kernels/csrc/fused_gru.cu",
                                   "src/repro/kernels/fused_gru/kernel.py:21"),
@@ -2247,7 +2505,8 @@ def main() -> int:
                      "train_eval_launches": eval_launches[name],
                      "sweep_launches": sweep_launches[name],
                      "fleet_launches": fleet_launches[name],
-                     "serve_launches": serve_launches[name], **e})
+                     "serve_launches": serve_launches[name],
+                     "fabric_launches": fabric_launches[name], **e})
     emit("total", seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

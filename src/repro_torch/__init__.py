@@ -4,7 +4,9 @@ for Hopper (`sm_90a`).
 The package mirrors the layout of the JAX package `repro`, which stays the
 reference it is held against, but imports nothing of it (nor `jax`):
 
-    repro_torch.net        FatTree, NetConfig, Flow, the packet DES
+    repro_torch.net        FatTree, the paper's topologies
+                           (paper_train_topo, meta_fabric), NetConfig,
+                           Flow, the packet DES
     repro_torch.data       the Table-2 traffic generator and the workload
                            families
     repro_torch.nn         linear / mlp / gru_cell on (d_in, d_out) weights
@@ -34,6 +36,8 @@ reference it is held against, but imports nothing of it (nor `jax`):
                            reader, guards (no_retrace), fault-tolerance
                            policies
     repro_torch.weights    the bridge from a JAX parameter tree
+    repro_torch.analysis   the port's lint, pure `ast`
+                           (python -m repro_torch.analysis --check)
 
 Entry points:
 

@@ -98,12 +98,12 @@ def _fs_program(a, cap, sizes_bits, arr_times, arr_order, incidence,
     else:
         inc = incidence.clone()
         inc_bufs = [inc]
-    b1 = torch.arange(B, device=dev)
-    remaining = torch.zeros(B, N, device=dev)
+    b1 = torch.arange(B, dtype=torch.long, device=dev)
+    remaining = torch.zeros(B, N, dtype=torch.float32, device=dev)
     active = torch.zeros(B, N, dtype=torch.bool, device=dev)
-    fct = torch.zeros(B, N, device=dev)
+    fct = torch.zeros(B, N, dtype=torch.float32, device=dev)
     ptr = torch.zeros(B, dtype=torch.long, device=dev)
-    t = torch.zeros(B, device=dev)
+    t = torch.zeros(B, dtype=torch.float32, device=dev)
     carried = [remaining, active, fct, ptr, t]
     owned = [a, cap, sizes, times, order, *inc_bufs, *carried]
     bufs = hits = sample = None
@@ -213,7 +213,8 @@ def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
                 for k, v in zip(log, rec):
                     log[k].append(v)
             out = prog.result()
-            log = {k: torch.stack(v, 1) if v else torch.zeros(B, 0)
+            log = {k: torch.stack(v, 1) if v
+                   else torch.zeros(B, 0, dtype=torch.float32)
                    for k, v in log.items()}
         return (out[0], log) + out[1:]
     key = (B, N, L, width, num_events, probes)

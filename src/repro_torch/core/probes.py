@@ -97,12 +97,12 @@ def init_buffers(probes: ProbeConfig, *, batch: int, num_flows: int,
     `ev` slots start at -1 so never-written slots show on the host
     (`reset_buffers` restores that state in place)."""
     S = probes.max_samples
-    bufs = {"t": torch.zeros(batch, S, device=device),
+    bufs = {"t": torch.zeros(batch, S, dtype=torch.float32, device=device),
             "ev": torch.full((batch, S), -1, dtype=torch.int32,
                              device=device)}
     for ch in probes.channels:
         D = num_links if ch in LINK_CHANNELS else num_flows
-        bufs[ch] = torch.zeros(batch, S, D, device=device)
+        bufs[ch] = torch.zeros(batch, S, D, dtype=torch.float32, device=device)
     return bufs
 
 

@@ -190,7 +190,7 @@ def _build_snapshot_dense(cfg: M4Config, flow_links, fid, active_mask):
     whole arena. `_build_snapshot` must emit the same."""
     SF = cfg.snap_flows
     B, N, _ = flow_links.shape
-    b1 = torch.arange(B, device=flow_links.device)
+    b1 = torch.arange(B, dtype=torch.long, device=flow_links.device)
     ev_links = flow_links[b1, fid]                            # (B, P)
     share = (flow_links[:, :, :, None] == ev_links[:, None, None, :]) \
         & (flow_links[:, :, :, None] >= 0)
@@ -198,7 +198,7 @@ def _build_snapshot_dense(cfg: M4Config, flow_links, fid, active_mask):
     score = torch.where(shares & active_mask, 1.0, 0.0)
     score[b1, fid] = score.new_full((B,), -1.0)
     # stable top-(SF-1) by score (ties -> lower index)
-    key = score * N - torch.arange(N, device=score.device)
+    key = score * N - torch.arange(N, dtype=torch.long, device=score.device)
     k = min(SF - 1, N)
     idx = torch.topk(key, k, dim=1).indices
     valid = torch.gather(score, 1, idx) > 0
@@ -208,7 +208,8 @@ def _build_snapshot_dense(cfg: M4Config, flow_links, fid, active_mask):
         valid = torch.cat([valid, valid.new_zeros(B, pad)], 1)
     idx = torch.where(valid, idx, N)
     snap_f = torch.cat([fid[:, None], idx], 1)
-    snap_mask = torch.cat([torch.ones(B, 1, device=score.device),
+    snap_mask = torch.cat([torch.ones(B, 1, dtype=torch.float32,
+                                      device=score.device),
                            valid.float()], 1)
     return snap_f, snap_mask
 
@@ -219,14 +220,15 @@ def _build_snapshot(cfg: M4Config, static, link_occ, fid):
     bitmap. Slot 0 = event flow, then the lowest-index active sharing flows
     ascending, dump index N beyond."""
     B, N = static["flow_links"].shape[:2]
-    b2 = torch.arange(B, device=fid.device)[:, None]
+    b2 = torch.arange(B, dtype=torch.long, device=fid.device)[:, None]
     rows = static["occ_rows"][b2[:, 0], fid]                  # (B, P)
     cand = static["link_members"][b2, rows]                   # (B, P, K)
     occ = link_occ[b2, rows]                                  # (B, P, K)
     vals = torch.where(occ & (cand != fid[:, None, None]), cand, N)
     uniq = _dedupe_ascending(vals.reshape(B, -1), cfg.snap_flows - 1, N)
     snap_f = torch.cat([fid[:, None], uniq], 1)
-    snap_mask = torch.cat([torch.ones(B, 1, device=fid.device),
+    snap_mask = torch.cat([torch.ones(B, 1, dtype=torch.float32,
+                                      device=fid.device),
                            (uniq < N).float()], 1)
     return snap_f, snap_mask
 
@@ -236,7 +238,7 @@ def _build_links(cfg: M4Config, flow_links, snap_f, snap_f_mask,
     """Snapshot link set (deduped, padded) + edge list, all snapshot-sized
     (SF·P). Edges are flow-slot major: edge e belongs to flow slot e // P."""
     B = flow_links.shape[0]
-    b2 = torch.arange(B, device=snap_f.device)[:, None]
+    b2 = torch.arange(B, dtype=torch.long, device=snap_f.device)[:, None]
     gl = flow_links[b2, snap_f]                               # (B, SF, P)
     gl = torch.where((gl >= 0) & (snap_f_mask[..., None] > 0), gl,
                      num_links).reshape(B, -1)
@@ -262,9 +264,10 @@ def make_event_step(cfg: M4Config, static, num_links: int,
     SF, P = cfg.snap_flows, cfg.max_path
     B, N = static["flow_links"].shape[:2]
     dev = static["flow_links"].device
-    b1 = torch.arange(B, device=dev)
+    b1 = torch.arange(B, dtype=torch.long, device=dev)
     b2 = b1[:, None]
-    edge_f = torch.arange(SF, device=dev).repeat_interleave(P)   # (SF·P,)
+    edge_f = torch.arange(SF, dtype=torch.long,
+                          device=dev).repeat_interleave(P)     # (SF·P,)
 
     def event_step(params, state, t_ev, fid, is_arrival):
         """One flow-level event per scenario (t_ev, fid, is_arrival: (B,)).
@@ -401,7 +404,7 @@ def _open_loop_body(params, step, state, ptr, arr_order, arr_times,
     Returns (state, ptr, t_ev, fid, is_arr, snapshot), all device tensors.
     `legacy` runs the dense program's race and updates."""
     B, N = arr_times.shape
-    b1 = torch.arange(B, device=ptr.device)
+    b1 = torch.arange(B, dtype=torch.long, device=ptr.device)
     pc = ptr.clamp(max=N - 1)[:, None]
     next_arr = torch.where(ptr < N, arr_times.gather(1, pc)[:, 0], BIG)
     if legacy:
@@ -456,7 +459,8 @@ def _probe_values(params, static, state, N: int, num_links: int):
         rows = static["occ_rows"]                              # (B, N, P)
         B = rows.shape[0]
         src = active()[:, :, None].expand(rows.shape)
-        cnt = torch.zeros(B, num_links + 1, device=rows.device)
+        cnt = torch.zeros(B, num_links + 1, dtype=torch.float32,
+                          device=rows.device)
         cnt.scatter_add_(1, rows.reshape(B, -1), src.reshape(B, -1))
         return cnt[:, :num_links]
 

@@ -67,10 +67,11 @@ def event_scan_losses(params, cfg: M4Config, b: dict) -> dict:
     l_in = torch.cat([b["link_feat"],
                       cfg_vec[:, None].expand(B, L, cfg_vec.shape[-1])], -1)
     link_h = torch.cat([torch.tanh(mlp(params["link_init"], l_in)),
-                        torch.zeros(B, 1, H, device=dev)], 1)
-    flow_h = torch.zeros(B, N + 1, H, device=dev)
-    flow_last = torch.zeros(B, N + 1, device=dev)
-    link_last = torch.zeros(B, L + 1, device=dev)
+                        torch.zeros(B, 1, H, dtype=torch.float32,
+                                    device=dev)], 1)
+    flow_h = torch.zeros(B, N + 1, H, dtype=torch.float32, device=dev)
+    flow_last = torch.zeros(B, N + 1, dtype=torch.float32, device=dev)
+    link_last = torch.zeros(B, L + 1, dtype=torch.float32, device=dev)
 
     # what depends on the data alone, for all K events at once
     sf, sl = b["snap_f"], b["snap_l"]                    # (B, K, SF / SL)
@@ -79,7 +80,7 @@ def event_scan_losses(params, cfg: M4Config, b: dict) -> dict:
     sl_safe = torch.where(sl >= 0, sl, L)
     sf_g = torch.clamp(sf_safe, max=N - 1)               # clamped gathers
     sl_g = torch.clamp(sl_safe, max=L - 1)
-    bk = torch.arange(B, device=dev)[:, None, None]
+    bk = torch.arange(B, dtype=torch.long, device=dev)[:, None, None]
     f_feat = b["flow_feat"][bk, sf_g]                    # (B, K, SF, 3)
     l_feat = b["link_feat"][bk, sl_g]                    # (B, K, SL, 1)
     # arrival: (re)initialize slot 0 (the event flow) from its features
@@ -87,8 +88,9 @@ def event_scan_losses(params, cfg: M4Config, b: dict) -> dict:
                      per_event_cfg.expand(B, K, cfg_vec.shape[-1])], -1)
     h_new = torch.tanh(mlp(params["flow_init"], fin))    # (B, K, H)
     is_arr = (b["etype"] == 0)[..., None]                # (B, K, 1)
-    edge_f = torch.arange(SF, device=dev).repeat_interleave(P)
-    bi = torch.arange(B, device=dev)[:, None]
+    edge_f = torch.arange(SF, dtype=torch.long,
+                          device=dev).repeat_interleave(P)
+    bi = torch.arange(B, dtype=torch.long, device=dev)[:, None]
 
     f_tmp, l_tmp, f_spa = [], [], []
     for k in range(K):

@@ -47,7 +47,7 @@ def incidence_lists(a: torch.Tensor) -> IncidenceLists:
     dev = a.device
     K = int(on.sum(-1).max()) if N * L else 0
     # a flow's links first, in ascending order; L marks "no link"
-    ids = torch.where(on, torch.arange(L, device=dev), L)
+    ids = torch.where(on, torch.arange(L, dtype=torch.long, device=dev), L)
     ids = ids.sort(-1).values[..., :K]
     flow_links = torch.where(ids < L, ids, -1).to(torch.int32).contiguous()
     link_ptr = torch.zeros(B, L + 1, dtype=torch.int32, device=dev)
@@ -56,7 +56,7 @@ def incidence_lists(a: torch.Tensor) -> IncidenceLists:
     # row-major nonzeros of (B, L, N): by scenario, then link, then flow
     b, l, f = on.transpose(1, 2).nonzero(as_tuple=True)
     start = torch.cumsum(nnz, 0) - nnz
-    pos = torch.arange(b.numel(), device=dev) - start[b]
+    pos = torch.arange(b.numel(), dtype=torch.long, device=dev) - start[b]
     # entry_of[b, f, l]: the place of f in link l's range (column L: none)
     entry_of = torch.zeros(B, N, L + 1, dtype=torch.int32, device=dev)
     entry_of[b, f, l] = pos.to(torch.int32)

@@ -1,4 +1,4 @@
 from .config import Flow, NetConfig
-from .topology import FatTree, paper_train_topo
+from .topology import FatTree, meta_fabric, paper_train_topo
 
-__all__ = ["FatTree", "Flow", "NetConfig", "paper_train_topo"]
+__all__ = ["FatTree", "Flow", "NetConfig", "meta_fabric", "paper_train_topo"]

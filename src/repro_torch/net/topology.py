@@ -1,9 +1,10 @@
 """Fat-tree topologies with plane-level oversubscription and ECMP paths.
 
-A copy of `repro.net.topology.FatTree` / `paper_train_topo`: the port keeps
-its own so that it never imports the JAX package. Links are unidirectional
-with integer ids; a flow's path is the list of link ids it traverses
-(host->tor, tor->spine, spine->tor, tor->host).
+A copy of `repro.net.topology.FatTree`, `paper_train_topo` and
+`meta_fabric`: the port keeps its own so that it never imports the JAX
+package. Links are unidirectional with integer ids; a flow's path is the
+list of link ids it traverses (host->tor, tor->spine, spine->tor,
+tor->host).
 """
 from __future__ import annotations
 
@@ -86,3 +87,13 @@ def paper_train_topo(oversub: str = "4-to-1") -> FatTree:
     spines = {"1-to-1": 4, "2-to-1": 2, "4-to-1": 1}[oversub]
     return FatTree(num_racks=8, hosts_per_rack=4, num_spines=spines,
                    oversub=oversub)
+
+
+def meta_fabric(num_pods: int = 8, racks_per_pod: int = 48,
+                hosts_per_rack: int = 16, oversub: str = "2-to-1") -> FatTree:
+    """Meta data-center-fabric-style large topology (§5.2), flattened to
+    leaf/spine with equivalent oversubscription."""
+    racks = num_pods * racks_per_pod
+    spines = max(1, hosts_per_rack // int(oversub.split("-")[0]))
+    return FatTree(num_racks=racks, hosts_per_rack=hosts_per_rack,
+                   num_spines=spines, oversub=oversub)

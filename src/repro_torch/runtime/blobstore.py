@@ -8,7 +8,10 @@ A copy of what the port needs of `repro.runtime.blobstore`: the layout
 `<root>/<key[:2]>/<key>.msgpack.z`, the integrity envelope (a 4-byte magic
 plus the sha256 of the compressed body, verified on every read), atomic
 writes (unique tempfile + rename) and quarantine of a corrupt entry
-(renamed to `<path>.corrupt`, read as a miss). Payloads go through the
+(renamed to `<path>.corrupt`, read as a miss). A file without the magic
+is a legacy entry from before the envelope: its whole body is decoded
+as a compressed payload, as the JAX package reads it, and only a body
+that does not decode is quarantined. Payloads go through the
 port's own msgpack codec (`runtime.codec`), which writes the same bytes as
 the `msgpack` package, and compress with zlib, as the JAX package does
 where `zstandard` is not installed. A zstd blob, which the JAX package
@@ -40,7 +43,8 @@ from .zstd import decompress as zstd_decompress
 logger = logging.getLogger("repro_torch.blobstore")
 
 # integrity envelope: magic + sha256(compressed body) + compressed body.
-# A file without the magic is corrupt: quarantined, read as a miss.
+# Files without the magic are legacy entries (pre-envelope): decoded
+# best-effort, quarantined on failure like everything else.
 _ENVELOPE_MAGIC = b"RBS1"
 _DIGEST_LEN = 32
 
@@ -92,10 +96,11 @@ class BlobStore:
     def get(self, key: str) -> Optional[object]:
         """The stored object, or None on miss/corruption.
 
-        Every read verifies the envelope's content hash, so a truncated
+        Every enveloped read verifies the content hash, so a truncated
         or bit-flipped entry can never decode into garbage — it is
         quarantined (renamed to `<path>.corrupt` with a warning) and
-        treated as a cache miss for the caller to rebuild."""
+        treated as a cache miss for the caller to rebuild. A legacy
+        entry (no envelope) that decodes is a hit and stays in place."""
         path = self._path(key)
         try:
             with open(path, "rb") as f:
@@ -103,12 +108,13 @@ class BlobStore:
         except OSError:
             return None
         try:
-            if data[:4] != _ENVELOPE_MAGIC:
-                raise IOError("no RBS1 envelope")
-            digest = data[4:4 + _DIGEST_LEN]
-            comp = data[4 + _DIGEST_LEN:]
-            if hashlib.sha256(comp).digest() != digest:
-                raise IOError("content hash mismatch")
+            if data[:4] == _ENVELOPE_MAGIC:
+                digest = data[4:4 + _DIGEST_LEN]
+                comp = data[4 + _DIGEST_LEN:]
+                if hashlib.sha256(comp).digest() != digest:
+                    raise IOError("content hash mismatch")
+            else:                       # legacy entry: no embedded digest
+                comp = data
             payload = unpackb(_decompress(comp))
             return self._decode(payload)
         except Exception as exc:

@@ -11,6 +11,12 @@ zlib. So a checkpoint written by either package restores in the other bit
 for bit, and one tree gives the same `state.sha256` in both. Leaves are
 tensors on any device or numpy arrays; `restore` gives each leaf the type
 and device of the corresponding leaf of `tree_like`.
+
+A bfloat16 leaf is stored as the JAX package stores it: under the dtype
+name "bfloat16", its values widened to float32 (exact), so the port needs
+neither `ml_dtypes` nor `jax` to write or read it. It restores as a
+`torch.bfloat16` tensor (on the device of a tensor in `tree_like`), or as
+an array of `tree_like`'s own bfloat16 dtype where that leaf is one.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import shutil
 import numpy as np
 import torch
 
-from ..weights import (leaf_numpy, tree_digest, tree_leaves,
+from ..weights import (is_bfloat16, leaf_numpy, tree_digest, tree_leaves,
                        tree_map_with_path)
 from .blobstore import _compress, _decompress
 from .codec import packb, unpackb
@@ -35,7 +41,11 @@ def save(ckpt_dir: str, step: int, tree, *, keep_last: int = 3) -> str:
     payload = {}
     for path, leaf in tree_leaves(tree):
         arr = leaf_numpy(leaf)
-        payload[path] = (arr.dtype.str, list(arr.shape), arr.tobytes())
+        if is_bfloat16(leaf):               # the values, widened to float32
+            payload[path] = ("bfloat16", list(arr.shape),
+                             arr.astype("<f4").tobytes())
+        else:
+            payload[path] = (arr.dtype.str, list(arr.shape), arr.tobytes())
     comp = _compress(packb(payload))
     digest = hashlib.sha256(comp).hexdigest()
 
@@ -93,6 +103,13 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None):
         if path not in payload:
             raise KeyError(f"checkpoint missing leaf {path}")
         dt, shape, buf = payload[path]
+        if dt == "bfloat16":
+            arr = np.frombuffer(buf, "<f4").reshape(shape)
+            if not isinstance(like, torch.Tensor) and is_bfloat16(like):
+                return arr.astype(like.dtype)
+            t = torch.from_numpy(arr.copy()).to(torch.bfloat16)
+            return t.to(like.device) if isinstance(like, torch.Tensor) \
+                else t
         arr = np.frombuffer(buf, np.dtype(dt)).reshape(shape).copy()
         if isinstance(like, torch.Tensor):
             return torch.from_numpy(arr).to(like.device)

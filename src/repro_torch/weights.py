@@ -54,10 +54,33 @@ def params_to(params, device) -> dict:
 
 
 def leaf_numpy(x) -> np.ndarray:
-    """A leaf of a tree (tensor on any device, or numpy) as numpy."""
+    """A leaf of a tree (tensor on any device, or numpy) as numpy; a
+    `torch.bfloat16` tensor, which numpy cannot hold, as its float32
+    values (exact)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().contiguous().numpy()
+        x = x.detach().cpu().contiguous()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
+
+
+def is_bfloat16(x) -> bool:
+    """A `torch.bfloat16` tensor, or a numpy array of the `bfloat16` dtype
+    that JAX's arrays convert to (known by its name: the port never
+    imports `ml_dtypes`)."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype == torch.bfloat16
+    return getattr(getattr(x, "dtype", None), "name", None) == "bfloat16"
+
+
+def leaf_bytes(x):
+    """(dtype name, raw bytes) of a leaf as numpy's view of the JAX
+    package's array gives them: a bfloat16 leaf is "bfloat16" and its
+    16-bit words."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        words = x.detach().cpu().contiguous().view(torch.int16).numpy()
+        return "bfloat16", words.tobytes()
+    a = leaf_numpy(x)
+    return str(a.dtype), a.tobytes()
 
 
 def tree_leaves(tree, prefix=""):
@@ -95,8 +118,8 @@ def tree_digest(tree) -> str:
     use it."""
     h = hashlib.sha256()
     for path, leaf in tree_leaves(tree):
-        a = leaf_numpy(leaf)
+        dtype, raw = leaf_bytes(leaf)
         h.update(path.encode())
-        h.update(str(a.dtype).encode())
-        h.update(a.tobytes())
+        h.update(dtype.encode())
+        h.update(raw)
     return h.hexdigest()

@@ -12,7 +12,9 @@ package's `msgpack`-based ones:
 - a corrupt newest step rolls back to the newest that loads;
 - a dataset shard written by either store is the same file and reads in
   the other; a zstd checkpoint of the JAX package restores in the port
-  bitwise, and a malformed zstd blob is a quarantined miss.
+  bitwise, and a malformed zstd blob is a quarantined miss;
+- a bare (pre-envelope) body reads as the JAX package reads it: a shard
+  is a hit that stays in place, anything else a quarantined miss.
 
 The port compresses with zlib, as the JAX package does where `zstandard`
 is not installed (as on the machine with the card). Where it is installed
@@ -245,10 +247,37 @@ def test_zstd_blob_raises_naming_zstd(tmp_path):
 
 
 def test_blob_without_envelope_is_a_quarantined_miss(tmp_path):
+    """A bare body is a legacy entry (no envelope), decoded as the JAX
+    package decodes it: this one decompresses, but its payload is not a
+    dataset shard, so both packages quarantine it. A bare body that is a
+    shard is a hit in both, and stays in place
+    (tests/test_torch_blobstore_legacy.py holds the result cache)."""
+    body = blobstore._compress(codec.packb({"a": 1}))     # not a shard
+    for store in (DatasetStore(str(tmp_path / "port")),
+                  JaxStore(str(tmp_path / "jax"))):
+        path = store._path("ef" * 32)
+        os.makedirs(os.path.dirname(path))
+        with open(path, "wb") as f:
+            f.write(body)
+        assert store.get("ef" * 32) is None
+        assert os.path.exists(path + ".corrupt") and not os.path.exists(path)
+
+
+def test_blob_without_envelope_that_is_a_shard_is_a_hit(tmp_path):
+    from repro.data.traffic import sample_scenario
+    from repro.net.packetsim import PacketSim
+    sc = sample_scenario(0, num_flows=20)
+    trace = PacketSim(sc.topo, sc.config).run(sc.generate())
+    batch = jax_build(trace, JaxM4Config(**TINY), max_events=32)
     store = DatasetStore(str(tmp_path))
+    jstore = JaxStore(str(tmp_path))
     path = store._path("ef" * 32)
     os.makedirs(os.path.dirname(path))
-    with open(path, "wb") as f:
-        f.write(blobstore._compress(codec.packb({"a": 1})))   # a valid body, bare
-    assert store.get("ef" * 32) is None
-    assert os.path.exists(path + ".corrupt") and not os.path.exists(path)
+    with open(path, "wb") as f:          # a legacy shard, bare zlib
+        f.write(blobstore._compress(codec.packb(jstore._encode(batch))))
+    for reader in (store, jstore):
+        got = reader.get("ef" * 32)
+        assert got is not None
+        for k, v in batch.to_arrays().items():
+            assert got.to_arrays()[k].tobytes() == v.tobytes(), k
+    assert os.path.exists(path) and not os.path.exists(path + ".corrupt")

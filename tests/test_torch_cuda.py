@@ -337,6 +337,36 @@ def test_waterfill_event_kernel_with_arrays_in_device_memory(card):
     _event_equal(card, a, cap, active)
 
 
+def test_waterfill_event_kernel_on_a_fabric_state(card):
+    """A real state of flowsim_fast on the paper's §5.2 fabric (18432
+    links): with three per-link arrays the event does not fit in shared
+    memory at 2000 flows, so the kernel runs in its device-memory
+    placement; the state is the one with the most rounds over the first
+    600 events of the card's run."""
+    from repro_torch.core import flowsim_fast as ff
+    from repro_torch.net import meta_fabric
+    req = SimRequest.from_scenario(sample_scenario(0, num_flows=2000,
+                                                   topo=meta_fabric()))
+    a, cap, *_ = ff._to_device([ff._pack(req.topo, list(req.flows))], card)
+    _, log = ff._event_scan_core(*ff._to_device(
+        [ff._pack(req.topo, list(req.flows))], card), num_events=600,
+        record=True)
+    fid, is_arr, rounds = (log[k][0].cpu().numpy()
+                           for k in ("fid", "is_arrival", "rounds"))
+    active = np.zeros(req.num_flows, bool)
+    pick = int(np.argmax(rounds))
+    for e in range(pick):
+        active[fid[e]] = is_arr[e]
+    assert active.sum() > 0
+    lists = wf_layout.incidence_lists(a)
+    smem, scratch = wf_layout.plan(2000, 18432, lists.flow_links.shape[2],
+                                   lists.nnz)
+    assert smem == 0 and scratch > 0
+    _, got_rounds, _ = _event_equal(card, a.cpu(), cap.cpu(),
+                                    torch.from_numpy(active)[None])
+    assert int(got_rounds) == int(rounds[pick])
+
+
 def test_run_on_the_card_matches_the_cpu(card):
     cfg = M4Config(**GATE)
     params = init_m4(0, cfg)

@@ -4,8 +4,10 @@ import neither `jax` nor anything of the JAX package `repro`, nor
 port's checkpoints and blob store use its own codec, zlib and its own
 zstd decoder). The sweep engine, the training pipeline, the probes, the
 obs layer with its divergence observatory, the compiled event loops,
-the simulation service, the fleet with its resilience policies, and the
-CLIs' modules are among those imported. That a spawned fleet worker
+the simulation service, the fleet with its resilience policies, the
+lint `repro_torch.analysis`, and the CLIs' modules are among those
+imported; none pulls in `ml_dtypes` either (the checkpoints write
+bfloat16 leaves without it). That a spawned fleet worker
 imports neither is checked in tests/test_torch_fleet_spawn.py."""
 import ast
 import os
@@ -51,12 +53,16 @@ MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.sim.closedloop",
            "repro_torch.fleet", "repro_torch.fleet.coord",
            "repro_torch.fleet.chaos", "repro_torch.fleet.metrics",
            "repro_torch.fleet.jobs", "repro_torch.fleet.worker",
-           "repro_torch.fleet.supervisor", "repro_torch.fleet.__main__"]
+           "repro_torch.fleet.supervisor", "repro_torch.fleet.__main__",
+           "repro_torch.analysis", "repro_torch.analysis.checkers",
+           "repro_torch.analysis.findings", "repro_torch.analysis.baseline",
+           "repro_torch.analysis.__main__"]
 
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro", "msgpack", "zstandard")
+    return top in ("jax", "jaxlib", "repro", "msgpack", "zstandard",
+                   "ml_dtypes")
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -94,3 +100,19 @@ def test_ast_scan_finds_no_jax_or_repro_import():
             bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
     assert bad == []
+
+
+def test_analysis_import_pulls_in_no_jax_and_no_repro():
+    """The lint alone, run over the port: pure `ast`, so it imports none
+    of the JAX package, not even `repro.analysis` whose framework it
+    copies."""
+    code = ("import sys\n"
+            "import repro_torch.analysis as a\n"
+            "from repro_torch.analysis.__main__ import main\n"
+            "assert a.analyze_paths()\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert "repro_torch.analysis.checkers" in out
+    assert [m for m in out if _forbidden(m)] == []
