@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (m4 and flowSim) on one NVIDIA card.
+"""Smoke run of the PyTorch/CUDA port (m4, flowSim and the LM substrate's
+serving path) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -171,7 +172,32 @@ Phases, each printing one JSON line:
                  against the CPU at FABRIC_CPU_FLOWS = 200 flows (m4 at
                  rtol 1e-4 up to one float32 ulp of the completion time,
                  flowsim_fast bitwise);
-14. files      — the port's file formats on this machine (no msgpack,
+14. sharded    — the multi-device paths with `core.sharding.local_devices`
+                 patched to [cuda:0, cuda:0] (two shards on one card;
+                 placement across cards is not exercised): `run_many` of
+                 m4 at full width and of flowsim_fast on four 2000-flow
+                 scenarios, sharded 2 x 2, against the batched path (m4
+                 at rtol 1e-4, flowsim_fast bitwise), each `*_sharded`
+                 count 1 then 0 on a repeat, the launches per event per
+                 shard the batched path's; one sharded batch-mode update
+                 of the training step (3 sims at K = 200 over two shards,
+                 a pad lane) captured, bitwise as its repeat and its eager
+                 twin, against the unsharded update (loss 1e-5 relative,
+                 weights 1e-4), no kernel launched;
+15. lm         — the LM substrate's serving path, plain PyTorch:
+                 zamba2-2.7b at its full configuration (54 layers, d 2560,
+                 bf16, seed 0 on the card): prefill at B = 2, S = 1024,
+                 64 decode steps, ms per prefill and per step and the
+                 peak memory each adds; decode against the forward's
+                 prefix on 32 tokens at full size in float32 (within 5e-3
+                 of the logits' max, JAX's bound) and, measured only, in
+                 bf16 beside the bf16 forward's distance from the float32
+                 one; the card against the CPU in float32, TF32 off, at
+                 full width with depth cut (zamba2 6 layers: prefill of
+                 one SSD chunk and 16 decode steps; moonshot-v1-16b-a3b 1
+                 layer: forward on 16 tokens) at rtol 1e-4; no kernel of
+                 the port launched;
+16. files      — the port's file formats on this machine (no msgpack,
                  zstandard or ml_dtypes): a tree with a torch.bfloat16
                  CUDA leaf through the checkpoint's save and restore,
                  bitwise, one tree_digest before and after; a bare
@@ -181,7 +207,8 @@ Phases, each printing one JSON line:
 Then the `kernels` line (each kernel's launches on the full-size `run`,
 on the probed `run`s, in the train phase's evaluation, in the sweeps, in
 the workers of the fleet phase's two clean fleets, in the serve phase's
-first round and in the fabric phase's two captured 2000-flow `run`s),
+first round, in the fabric phase's two captured 2000-flow `run`s and in
+the sharded phase's two sharded `run_many`s),
 the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits nonzero and prints no result; so it does with no CUDA device, or
@@ -221,6 +248,10 @@ FABRIC_FLOWS = 2000        # fabric phase: meta_fabric() captured vs eager
 FABRIC_SCALE_FLOWS = 10000  # ... one captured run of each at this scale
 FABRIC_CPU_FLOWS = 200     # ... the card against the CPU at this scale
 FLEET_CHUNK = 4            # fleet phase: smoke16 in 4 tasks of 4 specs
+SHARD_TRAIN_FLOWS = 100    # sharded phase: 3 sims cut to K = 200 events
+LM_PREFILL = 1024          # lm phase: prefill tokens (4 SSD chunks) ...
+LM_DECODE_STEPS = 64       # ... and decode steps, at B = 2
+LM_DECODE_TOL = 5e-3       # decode vs forward, float32 (JAX's own bound)
 # a worker-targeted fault fires only in a worker that claims a task, so
 # the kill targets both workers of the pool: the first to claim dies
 FLEET_CHAOS = ("kill:worker=0,after=1;kill:worker=1,after=1;"
@@ -2385,6 +2416,308 @@ def phase_files(torch, np, dev):
         raise AssertionError(f"imported {mods}")
 
 
+def phase_sharded(torch, np, m4, fs, cfg, dev, smi):
+    """The multi-device paths (`repro_torch.core.sharding`) with
+    `local_devices` patched to [cuda:0, cuda:0], two shards on one card
+    (the counterpart of JAX's forced host devices; real placement across
+    cards is not exercised): `run_many` of m4 at full width and of
+    flowsim_fast on `sample_scenario(0..3)` at 2000 flows against the
+    batched path (m4 at FCT_RTOL, and whether bitwise; flowsim_fast
+    bitwise), each `*_sharded` count +1 on the first call and 0 on a
+    repeat, the launches per event per shard the batched path's; then one
+    sharded batch-mode update of the training step (three sims of
+    SHARD_TRAIN_FLOWS flows, K = 200, B = 3 over two shards: a pad lane)
+    captured, its repeat (0 programs) and its eager twin bitwise, against
+    the unsharded update (loss within 1e-5 relative, weights 1e-4), with
+    no kernel launched. Returns the launches of the two sharded
+    `run_many`s (the main path of this phase)."""
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.core import compiled, sharding
+    from repro_torch.data.traffic import sample_scenario
+    from repro_torch.scenarios import random_spec
+    from repro_torch.sim import SimRequest
+    from repro_torch.train import (TRACE_COUNTS, TrainConfig, build_dataset,
+                                   init_state, make_buckets)
+    from repro_torch.train.loop import _make_schedule, make_bucket_step
+    from repro_torch.weights import tree_leaves
+
+    t_phase = time.perf_counter()
+    two = [torch.device(dev.type, 0)] * 2      # cuda:0, twice
+    patched = mock.patch.object(sharding, "local_devices", lambda d: two)
+    reqs = [SimRequest.from_scenario(sample_scenario(s)) for s in range(4)]
+    events = 2 * max(r.num_flows for r in reqs)
+    total = launches()
+    for name, backend, per_event, key in (
+            ("m4", m4, launches(2, 1), "open_loop_sharded"),
+            ("flowsim_fast", fs, launches(event=1), "event_scan_sharded")):
+        tc = trace_counts(name)
+        batched, bcounts, bwall = run_counted(
+            torch, lambda: backend.run_many(reqs))
+        with patched:
+            c0 = tc[key]
+            got, counts, wall, peak = peak_run(
+                torch, lambda: backend.run_many(reqs))
+            c1 = tc[key]
+            again, counts2, wall2 = run_counted(
+                torch, lambda: backend.run_many(reqs))
+            c2 = tc[key]
+        want = {k: v * events * len(two) for k, v in per_event.items()}
+        if (c1 - c0, c2 - c1) != (1, 0) or not counts == counts2 == want:
+            raise AssertionError(
+                f"sharded {name}: counts {c1 - c0} then {c2 - c1} (want 1 "
+                f"then 0), launches {counts} / {counts2}, want {want}")
+        if {k: v * len(two) for k, v in bcounts.items()} != want:
+            raise AssertionError(f"sharded {name}: batched launches "
+                                 f"{bcounts}")
+        check_fcts(np, got, reqs)
+        bitwise = all(same_result(np, a, b) for a, b in zip(got, batched))
+        rel = max(float(np.max(np.abs(a.fcts - b.fcts) / np.abs(b.fcts)))
+                  for a, b in zip(got, batched))
+        if not all(same_result(np, a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"sharded {name}: a repeat call differs")
+        if (name == "flowsim_fast" and not bitwise) or rel > FCT_RTOL:
+            raise AssertionError(f"sharded {name}: FCTs differ from the "
+                                 f"batched path (max rel {rel}, bitwise "
+                                 f"{bitwise})")
+        for k, v in counts.items():
+            total[k] += v
+        emit("sharded", path=name, entry="run_many",
+             flows=[r.num_flows for r in reqs], shards=len(two),
+             scenarios_per_shard=-(-len(reqs) // len(two)), events=events,
+             sharded_events_per_s=events / wall2,
+             sharded_events_per_s_capture_call=events / wall,
+             batched_events_per_s=events / bwall,
+             sharded_over_batched=bwall / wall2, launches=counts,
+             launches_per_event_per_shard={
+                 k: v / (events * len(two)) for k, v in counts.items()},
+             batched_launches=bcounts, counts_first_call=c1 - c0,
+             counts_repeat_call=c2 - c1, max_rel_fct_vs_batched=rel,
+             bitwise_vs_batched=bitwise, peak_added_bytes=peak, card=smi)
+
+    # ---- the sharded batch training step
+    specs = [random_spec(s, num_flows=SHARD_TRAIN_FLOWS) for s in (0, 1, 2)]
+    with tempfile.TemporaryDirectory() as store:
+        batches, _ = build_dataset(specs, cfg, store, max_events=200,
+                                   log=lambda *a: None)
+    (bucket,) = make_buckets(batches, 8)
+    arrays = bucket.to(dev).arrays
+    tc = TrainConfig(epochs=1, step_mode="batch", shuffle=False)
+    schedule = _make_schedule(tc, 1)
+    s0 = init_state(cfg, 0, device=dev)
+    step = make_bucket_step(cfg, tc, schedule)
+    with patched:
+        c0 = TRACE_COUNTS["train_step_sharded"]
+        base = peak_mark(torch)
+        (p1, o1, out1), counts, wall = run_counted(
+            torch, lambda: step(s0.params, s0.opt, arrays))
+        peak = torch.cuda.max_memory_allocated() - base
+        c1 = TRACE_COUNTS["train_step_sharded"]
+        (p2, o2, out2), counts2, wall2 = run_counted(
+            torch, lambda: step(s0.params, s0.opt, arrays))
+        c2 = TRACE_COUNTS["train_step_sharded"]
+        with compiled.eager():
+            (p3, o3, out3), _, ewall = run_counted(
+                torch, lambda: make_bucket_step(cfg, tc, schedule)(
+                    s0.params, s0.opt, arrays))
+    with compiled.eager():
+        (pu, ou, outu), _, uwall = run_counted(
+            torch, lambda: make_bucket_step(cfg, tc, schedule)(
+                s0.params, s0.opt, arrays))
+    leaves = lambda t: [x for _, x in tree_leaves(t)]  # noqa: E731
+    if (c1 - c0, c2 - c1) != (1, 0) or counts != launches() \
+            or counts2 != launches():
+        raise AssertionError(f"sharded train: programs {c1 - c0} then "
+                             f"{c2 - c1}, launches {counts} / {counts2}")
+    if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(
+            leaves(p1) + leaves(o1) + [out1], leaves(p2) + leaves(o2)
+            + [out2], leaves(p3) + leaves(o3) + [out3])):
+        raise AssertionError("sharded train: the replayed update differs "
+                             "from its repeat or its eager twin")
+    loss_rel = abs(float(out1[0, 0]) / float(outu[0, 0]) - 1.0)
+    w_err = max(float((a - b).abs().max()) for a, b in
+                zip(leaves(p1), leaves(pu)))
+    if loss_rel > 1e-5 or w_err > 1e-4 or not torch.isfinite(out1).all():
+        raise AssertionError(f"sharded train: loss rel {loss_rel}, weights "
+                             f"max abs {w_err} against the unsharded step")
+    emit("sharded", path="train_step", step_mode="batch", sims=len(batches),
+         events_per_sim=max(b.num_events for b in batches), shards=len(two),
+         cut=f"num_flows 2000 -> {SHARD_TRAIN_FLOWS}, K = 200",
+         loss=float(out1[0, 0]), unsharded_loss=float(outu[0, 0]),
+         loss_rel_vs_unsharded=loss_rel, weights_max_abs_vs_unsharded=w_err,
+         bitwise_repeat_and_eager=True, programs_first_call=c1 - c0,
+         programs_repeat_call=c2 - c1, capture_call_s=wall, replay_s=wall2,
+         eager_sharded_s=ewall, eager_unsharded_s=uwall,
+         peak_added_bytes=peak, launches=counts, card=smi)
+    emit("sharded", step="phase", seconds=time.perf_counter() - t_phase,
+         card=smi)
+    return total
+
+
+def phase_lm(torch, np, dev, smi):
+    """The LM substrate's serving path (`repro_torch.models`, plain
+    PyTorch: it has no TPU kernel and launches none of the port's):
+    zamba2-2.7b at its full configuration (54 layers, d 2560, bf16) from
+    `torch.Generator` seed 0 on the card: `prefill_step` at B = 2,
+    S = LM_PREFILL and LM_DECODE_STEPS `serve_step`s, timed, logits
+    finite, with the peak memory each adds. Decode against the forward's
+    prefix on 32 tokens (the forward over one SSD chunk), at full size
+    twice: in float32 (TF32 off), held within LM_DECODE_TOL of the
+    logits' max abs; in bfloat16, measured beside the bfloat16 forward's
+    own distance from the float32 forward of the same weights (random
+    weights amplify bf16 rounding through 54 layers, so no bound is held
+    there). Then the card against the CPU in float32 with TF32 off at
+    full width, depth cut (zamba2 at 6 layers, one shared-attention
+    site: prefill of one SSD chunk and 16 `serve_step`s;
+    moonshot-v1-16b-a3b at 1 layer: forward on 16 tokens), at rtol 1e-4
+    (atol 1e-4 of the logits' max abs)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.weights import params_to, tree_leaves
+
+    t_phase = time.perf_counter()
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    cfg = configs.get_config("zamba2-2.7b")
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, S, steps = 2, LM_PREFILL, LM_DECODE_STEPS
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+
+    def finite(name, t):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"lm {name}: logits not finite")
+        return t
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def init(c, seed):
+        return lm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                              c)
+
+    def decode(params, c, n, dtype=None):
+        """n serve_steps of `tokens` from an empty state: (B, n, V)."""
+        st, out = lm.init_decode_state(c, B, n, dtype, device=dev), []
+        for t in range(n):
+            st, lg = lm.serve_step(params, c, st,
+                                   {"tokens": tokens[:, t:t + 1]})
+            out.append(lg)
+        return torch.stack(out, 1)
+
+    def prefix_gap(params, c):
+        """(max abs gap of 32 decode steps against the forward's prefix,
+        the forward's logits over one SSD chunk)."""
+        full, _ = lm.forward(params, c, {"tokens": tokens[:, :c.ssm_chunk]},
+                             remat=False)
+        dec = decode(params, c, 32)
+        return float((dec.float() - full[:, :32].float()).abs().max()), full
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    with torch.no_grad():
+        # ---- bf16, the configuration as published
+        base = peak_mark(torch)
+        params, init_s = timed(lambda: init(cfg, 0))
+        param_bytes = torch.cuda.memory_allocated() - base
+        lm.prefill_step(params, cfg, {"tokens": tokens[:, :cfg.ssm_chunk]})
+        mark = peak_mark(torch)
+        logits, prefill_s = timed(lambda: lm.prefill_step(
+            params, cfg, {"tokens": tokens}))
+        prefill_peak = torch.cuda.max_memory_allocated() - mark
+        finite("prefill", logits)
+        decode(params, cfg, 1)                               # warm-up
+        mark = peak_mark(torch)
+        dec, decode_s = timed(lambda: decode(params, cfg, steps))
+        decode_peak = torch.cuda.max_memory_allocated() - mark
+        finite("decode", dec)
+        gap16, full16 = prefix_gap(params, cfg)
+        n_params = sum(x.numel() for _, x in tree_leaves(params))
+        del params, dec, logits
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            # ---- float32: the same draws, not rounded to bf16
+            c32 = cfg.with_(dtype=torch.float32)
+            params = init(c32, 0)
+            gap32, full32 = prefix_gap(params, c32)
+            scale = float(full32[:, :32].abs().max())
+            bf16_fwd = float((full16[:, :32].float()
+                              - full32[:, :32]).abs().max())
+            del params
+            torch.cuda.empty_cache()
+            emit("lm", arch=cfg.name, layers=cfg.num_layers,
+                 d_model=cfg.d_model, dtype=str(cfg.dtype), params=n_params,
+                 param_bytes=param_bytes, init_s=init_s, batch=B,
+                 prefill_tokens=S, ms_per_prefill=1e3 * prefill_s,
+                 prefill_peak_added_bytes=prefill_peak, decode_steps=steps,
+                 ms_per_decode_step=1e3 * decode_s / steps,
+                 decode_peak_added_bytes=decode_peak, logits_max_abs=scale,
+                 decode_vs_forward_rel_fp32=gap32 / scale,
+                 decode_vs_forward_tol_fp32=LM_DECODE_TOL,
+                 decode_vs_forward_rel_bf16=gap16 / scale,
+                 bf16_forward_vs_fp32_forward_rel=bf16_fwd / scale,
+                 card=smi)
+            finite("forward", full32)
+            if gap32 > LM_DECODE_TOL * scale:
+                raise AssertionError(f"lm: float32 decode/forward gap "
+                                     f"{gap32} over {LM_DECODE_TOL} of "
+                                     f"{scale}")
+
+            # ---- the card against the CPU, float32, depth cut
+            for arch, layers, call in (
+                    ("zamba2-2.7b", 6, "prefill+decode"),
+                    ("moonshot-v1-16b-a3b", 1, "forward")):
+                c = configs.get_config(arch).with_(num_layers=layers,
+                                                   dtype=torch.float32)
+                p = init(c, 2)
+                outs = {}
+                for where, pp in (("card", p), ("cpu", params_to(p, "cpu"))):
+                    tk = tokens[:1, :256].to(pp["embed"]["table"].device)
+                    t0 = time.perf_counter()
+                    if call == "forward":
+                        got = [lm.forward(pp, c, {"tokens": tk[:, :16]},
+                                          remat=False)[0][0]]
+                    else:
+                        got = [lm.prefill_step(pp, c, {"tokens": tk})]
+                        st = lm.init_decode_state(c, 1, 16,
+                                                  device=tk.device)
+                        for t in range(16):
+                            st, lg = lm.serve_step(pp, c, st,
+                                                   {"tokens": tk[:, t:t + 1]})
+                            got.append(lg)
+                    outs[where] = (torch.cat([x.reshape(-1, x.shape[-1])
+                                              for x in got]).cpu(),
+                                   time.perf_counter() - t0)
+                (gc, _), (cc, cpu_s) = outs["card"], outs["cpu"]
+                finite(f"{arch} card", gc)
+                tol = 1e-4 * float(cc.abs().max())
+                err = float((gc - cc).abs().max())
+                emit("lm", step="cpu", arch=arch, layers=layers,
+                     d_model=c.d_model, call=call, rows=gc.shape[0],
+                     max_abs_diff=err, atol=tol, rtol=1e-4,
+                     cpu_wall_s=cpu_s, card=smi)
+                if not torch.allclose(gc, cc, rtol=1e-4, atol=tol):
+                    raise AssertionError(f"lm {arch}: card and CPU differ "
+                                         f"(max abs {err}, atol {tol})")
+                del p, outs
+                torch.cuda.empty_cache()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+    counts = {k: f.launches for k, f in counters.items()}
+    if counts != launches():
+        raise AssertionError(f"lm: a kernel of the port launched: {counts}")
+    emit("lm", step="phase", seconds=time.perf_counter() - t_phase,
+         launches=counts, card=smi)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2486,6 +2819,8 @@ def main() -> int:
     fleet_launches = phase_fleet(torch, np, m4, fs, smi)
     serve_launches = phase_serve(torch, np, params, cfg, smi)
     fabric_launches = phase_fabric(torch, np, m4, fs, params, cfg, dev, smi)
+    sharded_launches = phase_sharded(torch, np, m4, fs, cfg, dev, smi)
+    phase_lm(torch, np, dev, smi)
     phase_files(torch, np, dev)
 
     sources = {"fused_gru_pair": ("src/repro_torch/kernels/csrc/fused_gru.cu",
@@ -2506,7 +2841,8 @@ def main() -> int:
                      "sweep_launches": sweep_launches[name],
                      "fleet_launches": fleet_launches[name],
                      "serve_launches": serve_launches[name],
-                     "fabric_launches": fabric_launches[name], **e})
+                     "fabric_launches": fabric_launches[name],
+                     "sharded_launches": sharded_launches[name], **e})
     emit("total", seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -23,6 +23,12 @@ shape, the static options) and counts each compile in its module's
   entry, under the JAX package's key names, so on either device the
   counts move where JAX's do, and `runtime.guards.no_retrace` guards them
   as it guards XLA compiles.
+- **Sharded calls** (`run_sharded`, JAX's pmap paths): one call runs
+  each shard through the entry of its own device, in turn, and counts
+  one in `TRACE_COUNTS` when any of those entries is new, as JAX counts
+  one pmap trace for all its devices. Shards on one device share that
+  device's entry; a program's `result()` returns copies, so a shard's
+  outputs survive the next shard's load.
 - **Launch counters.** A replay runs no Python, so the kernel wrappers'
   `.launches` cannot count it: an entry records how many launches of
   each kind its graphs hold and adds them per replay. The warm-up and
@@ -155,15 +161,18 @@ class Entry:
         prog = self.program
         prog.load(*args)
         if self.device.type == "cuda":
-            if not self.graphs:
-                self._capture()
-                prog.load(*args)        # the warm-up advanced the state
-            for name, times in prog.plan:
-                graph = self.graphs[name]
-                for _ in range(times):
-                    graph.replay()
-                for fn, n in self.launches[name].items():
-                    fn.launches += n * times
+            # the capture stream is the current device's: a shard's entry
+            # on another card captures and replays there
+            with torch.cuda.device(self.device):
+                if not self.graphs:
+                    self._capture()
+                    prog.load(*args)    # the warm-up advanced the state
+                for name, times in prog.plan:
+                    graph = self.graphs[name]
+                    for _ in range(times):
+                        graph.replay()
+                    for fn, n in self.launches[name].items():
+                        fn.launches += n * times
         else:
             prog.run_eager()
         self.calls += 1
@@ -210,25 +219,49 @@ def run(counts, name: str, key: tuple, device, build: Callable[..., Program],
     by `build(*args)`, counted in `counts[name]`, and (on a card)
     captured on first use; then loaded with `args` and replayed. Under
     `eager()` the program is built afresh, run eagerly and not cached."""
-    device = torch.device(device)
+    return run_sharded(counts, name, key, build, [(device, args)])[0]
+
+
+def run_sharded(counts, name: str, key: tuple, build: Callable[..., Program],
+                shards) -> List[tuple]:
+    """One call of entry point `name` over `shards`, a list of (device,
+    args): shard i runs through the entry of (name, key, its device), in
+    turn, and its result (copies: a `Program`'s `result()` clones) stays
+    on its device. `counts[name]` moves by one when any of these entries
+    is new, once per call as JAX counts one pmap trace however many
+    devices it spans; shards on one device share that device's entry.
+    Under `eager()` each shard's program is built afresh and run
+    eagerly."""
     with _LOCK, torch.inference_mode():
         if getattr(_EAGER, "on", False):
-            prog = build(*args)
-            prog.load(*args)
-            prog.run_eager()
-            return prog.result()
-        full = (name,) + tuple(key) + (str(device),)
-        entry = _CACHE.get(full)
-        if entry is None:
+            out = []
+            for _, args in shards:
+                prog = build(*args)
+                prog.load(*args)
+                prog.run_eager()
+                out.append(prog.result())
+            return out
+        fulls = [(name,) + tuple(key) + (str(torch.device(dev)),)
+                 for dev, _ in shards]
+        if any(full not in _CACHE for full in fulls):
             counts[name] += 1
-            entry = Entry(full, build(*args), device)
-            _CACHE[full] = entry
-            try:
-                return entry.run(*args)
-            except BaseException:
-                del _CACHE[full]
-                raise
+        return [_run_entry(full, torch.device(dev), build, args)
+                for full, (dev, args) in zip(fulls, shards)]
+
+
+def _run_entry(full: tuple, device: torch.device, build, args) -> tuple:
+    """Run `args` through the entry of key `full`, building it (and
+    dropping it again if its first run raises) when it is new."""
+    entry = _CACHE.get(full)
+    if entry is not None:
         return entry.run(*args)
+    entry = Entry(full, build(*args), device)
+    _CACHE[full] = entry
+    try:
+        return entry.run(*args)
+    except BaseException:
+        del _CACHE[full]
+        raise
 
 
 class StepProgram:
@@ -272,11 +305,12 @@ class StepEntry:
         prog = self.program
         prog.load(*args)
         if self.device.type == "cuda":
-            if self.graph is None:
-                self._capture()
-                prog.load(*args)        # the warm-up trained the buffers
-            for _ in range(prog.replays):
-                self.graph.replay()
+            with torch.cuda.device(self.device):
+                if self.graph is None:
+                    self._capture()
+                    prog.load(*args)    # the warm-up trained the buffers
+                for _ in range(prog.replays):
+                    self.graph.replay()
         else:
             prog.run_eager()
         self.calls += 1

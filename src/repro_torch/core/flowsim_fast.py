@@ -20,7 +20,11 @@ per arena shape: on a card the event step captured as a CUDA graph and
 replayed 2N times, on the CPU the same step run eagerly. Each new program
 counts one in `TRACE_COUNTS` under the JAX package's names
 ("event_scan" for `run_flowsim_fast`, "event_scan_batched" for
-`run_flowsim_fast_batch`). On a card the program's incidence lists have
+`run_flowsim_fast_batch`). Where JAX takes its pmap path (more than one
+device in `sharding.local_devices`, at least one scenario per device, no
+probes), the batch is sharded across the devices, one program per device
+and shard shape, and one new sharded call counts one
+"event_scan_sharded". On a card the program's incidence lists have
 room for `_list_width` links a flow (4, the longest path of the repo's
 fat trees, or the next power of two above a longer one), so a new width,
 and with it a new capture, comes only with a path longer than any the
@@ -52,12 +56,14 @@ from ..kernels.waterfill.layout import IncidenceLists
 from ..kernels.waterfill.ref import BIG, MAX_ROUNDS, TIE  # noqa: F401
 from . import compiled
 from . import probes as _probes
+from . import sharding
 from .flowsim import FlowSimResult
 from .probes import FLOWSIM_CHANNELS, ProbeConfig, normalize_probes
 
 
 # New compiled programs per entry point ("event_scan",
-# "event_scan_batched"), as the JAX package counts its XLA traces.
+# "event_scan_batched", "event_scan_sharded"), as the JAX package counts
+# its XLA traces.
 TRACE_COUNTS = Counter()
 
 
@@ -178,6 +184,45 @@ def _fs_program(a, cap, sizes_bits, arr_times, arr_order, incidence,
     return prog
 
 
+def _incidences(arenas):
+    """The water-filling's incidence of each of `arenas`, built once for a
+    run on its device (`dispatch.waterfill_incidence`), and the list width
+    of their program: every list padded to the widest `_list_width` among
+    them (None for the CPU's dense incidence)."""
+    with torch.inference_mode():
+        incs = [dispatch.waterfill_incidence(a) for a in arenas]
+        if not isinstance(incs[0], IncidenceLists):
+            return incs, None
+        width = max(_list_width(i.flow_links.shape[2]) for i in incs)
+        return [_pad_lists(i, width) for i in incs], width
+
+
+def _event_scan_sharded(a, cap, sizes_bits, arr_times, arr_order, devices):
+    """`_event_scan_sharded` of the JAX package: the (B, ...) arenas
+    sharded (D, ceil(B/D), ...) by `sharding.shard_leaves`, shard i run on
+    `devices[i]` through its program of 2N events, its incidence built on
+    that device (the lists of every shard padded to one width, so the
+    shards share one key), counted once per new sharded key in
+    TRACE_COUNTS["event_scan_sharded"]. Returns the absolute completion
+    times (B, N) on the caller's device, pad replicas dropped."""
+    B, N, L = a.shape
+    D = len(devices)
+    cols = sharding.shard_leaves([a, cap, sizes_bits, arr_times, arr_order],
+                                 D)
+    shards = [[x[i].to(dev) for x in cols] for i, dev in enumerate(devices)]
+    incs, width = _incidences([args[0] for args in shards])
+    key = (D, cols[0].shape[1], N, L, width)
+
+    def build(*args):
+        return _fs_program(*args, 2 * N, None)
+    outs = compiled.run_sharded(
+        TRACE_COUNTS, "event_scan_sharded", key, build,
+        [(dev, (*args, inc)) for dev, args, inc in
+         zip(devices, shards, incs)])
+    return sharding.unshard(
+        torch.stack([out[0].to(a.device) for out in outs]), B)
+
+
 def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
                      num_events=None, record=False,
                      probes: ProbeConfig = None,
@@ -191,12 +236,7 @@ def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
     `probes`, last the ring buffers (see `core.probes`)."""
     B, N, L = a.shape
     length = 2 * N if num_events is None else num_events
-    with torch.inference_mode():
-        incidence = dispatch.waterfill_incidence(a)    # fixed for the run
-        width = None
-        if isinstance(incidence, IncidenceLists):
-            width = _list_width(incidence.flow_links.shape[2])
-            incidence = _pad_lists(incidence, width)
+    (incidence,), width = _incidences([a])
     args = (a, cap, sizes_bits, arr_times, arr_order, incidence)
 
     def build(*args):
@@ -300,8 +340,15 @@ def _run(scenarios, device, probes, entry):
     l_max = max(topo.num_links for topo, _ in scenarios)
     args = _to_device([_pack(topo, flows, n_total=n_max, l_total=l_max)
                        for topo, flows in scenarios], device)
+    # JAX's pmap path: more than one device, a batch of at least one
+    # scenario per device, and no probes
+    devices = sharding.local_devices(device)
     t0 = time.perf_counter()
-    out = _event_scan_core(*args, probes=probes, entry=entry)
+    if (entry == "event_scan_batched" and 1 < len(devices) <= len(scenarios)
+            and probes is None):
+        out = _event_scan_sharded(*args, devices)
+    else:
+        out = _event_scan_core(*args, probes=probes, entry=entry)
     if probes is None:
         fct_abs, bufs = out.cpu().numpy(), None
     else:

@@ -15,7 +15,11 @@ carry an explicit leading batch axis B (one scenario per row;
 captured as a CUDA graph and replayed 2·N times, on the CPU the same step
 run eagerly. Each new program counts one in `TRACE_COUNTS` under the JAX
 package's names ("open_loop" for `simulate_open_loop`,
-"open_loop_batched" for `simulate_open_loop_batch`). No step syncs with
+"open_loop_batched" for `simulate_open_loop_batch`). Where JAX takes its
+pmap path (more than one device in `sharding.local_devices`, at least one
+scenario per device, the incremental builder, no probes), the batch is
+sharded across the devices, one program per device and shard shape, and
+one new sharded call counts one "open_loop_sharded". No step syncs with
 the host: the event pointer, time, flow id and kind stay device tensors,
 and every op has a data-independent output shape (`_dedupe_ascending`
 replaces `unique`). Padded flows arrive at t = BIG after every real
@@ -47,13 +51,15 @@ from ..nn import mlp
 from ..weights import tree_map
 from . import compiled
 from . import probes as _probes
+from . import sharding
 from .model import (M4Config, predict_queue, predict_size, predict_sldn,
                     spatial_update, temporal_update)
 from .probes import M4_CHANNELS, ProbeConfig, normalize_probes
 
 BIG = 1e30
 
-# New compiled programs per entry point ("open_loop", "open_loop_batched"):
+# New compiled programs per entry point ("open_loop", "open_loop_batched",
+# "open_loop_sharded"):
 # one per key of `repro_torch.core.compiled`, where the JAX package counts
 # its XLA traces under the same names.
 TRACE_COUNTS = Counter()
@@ -480,7 +486,9 @@ def _m4_program(params, cfg: M4Config, num_links: int, static, arr_order,
     one event step over them (with `probes`, also the rings, their hit
     counter and the read-out)."""
     B, N = arr_times.shape
-    p = tree_map(torch.clone, params)
+    # the program's own weights, on its device (a shard's may not be the
+    # caller's)
+    p = tree_map(lambda t: t.to(arr_times.device, copy=True), params)
     st = {k: v.clone() for k, v in static.items()}
     order, times = arr_order.clone(), arr_times.clone()
     state = init_sim_state(p, cfg, st, N, num_links)
@@ -548,6 +556,33 @@ def _open_loop_core(params, cfg: M4Config, num_links: int, static,
                         params, static, arr_order, arr_times)
 
 
+def _open_loop_sharded(params, cfg: M4Config, num_links: int, static,
+                       arr_order, arr_times, devices):
+    """`_open_loop_scan_sharded` of the JAX package: the (B, ...) arenas
+    sharded (D, ceil(B/D), ...) by `sharding.shard_leaves`, shard i run on
+    `devices[i]` through its program of 2N events (the weights copied
+    into each program, on its device), counted once per new sharded key
+    in TRACE_COUNTS["open_loop_sharded"]. Returns the FCTs (B, N) on the
+    caller's device, pad replicas dropped."""
+    B, N = arr_times.shape
+    D = len(devices)
+    K = static["link_members"].shape[2]
+    st, order, times = sharding.shard_leaves([static, arr_order, arr_times],
+                                             D)
+    key = (cfg, num_links, D, times.shape[1], N, K)
+
+    def build(params, static, arr_order, arr_times):
+        return _m4_program(params, cfg, num_links, static, arr_order,
+                           arr_times, None, "incremental", 2 * N)
+    shards = [(dev, (params, {k: v[i].to(dev) for k, v in st.items()},
+                     order[i].to(dev), times[i].to(dev)))
+              for i, dev in enumerate(devices)]
+    outs = compiled.run_sharded(TRACE_COUNTS, "open_loop_sharded", key,
+                                build, shards)
+    return sharding.unshard(
+        torch.stack([fct.to(arr_times.device) for fct, _ in outs]), B)
+
+
 @dataclass
 class M4Result:
     fcts: np.ndarray
@@ -610,7 +645,9 @@ def simulate_open_loop_batch(params, cfg: M4Config, scenarios, *,
     weight in exchange for one compiled program whose every op covers all
     scenarios. `probes` records per-scenario series (batched ring
     buffers, sliced and trimmed to each scenario's flows and links on the
-    host)."""
+    host). With several devices the batch is sharded across them, as
+    JAX's pmap path (`_open_loop_sharded`); a probed batch, the dense
+    program and a batch smaller than the device count stay batched."""
     return _run_open_loop(params, cfg, scenarios, entry="open_loop_batched",
                           snapshot_impl=snapshot_impl, probes=probes)
 
@@ -643,11 +680,22 @@ def _run_open_loop(params, cfg: M4Config, scenarios, *, entry: str,
     order_b = torch.from_numpy(np.stack(orders)).long().to(device)
     times_b = torch.from_numpy(np.stack(times)).to(device)
 
+    # JAX's pmap path: more than one device, a batch of at least one
+    # scenario per device, the incremental snapshot builder and no probes
+    devices = sharding.local_devices(device)
+    sharded = (entry == "open_loop_batched" and 1 < len(devices)
+               <= len(scenarios) and snapshot_impl == "incremental"
+               and probes is None)
+
     def call():
         t0 = time.perf_counter()
-        out = _open_loop_core(params, cfg, l_max, static, order_b, times_b,
-                              probes, snapshot_impl=snapshot_impl,
-                              entry=entry)
+        if sharded:
+            out = (_open_loop_sharded(params, cfg, l_max, static, order_b,
+                                      times_b, devices),)
+        else:
+            out = _open_loop_core(params, cfg, l_max, static, order_b,
+                                  times_b, probes,
+                                  snapshot_impl=snapshot_impl, entry=entry)
         fct = out[0].cpu().numpy()
         bufs = None if probes is None else _probes.buffers_numpy(out[2])
         return fct, bufs, time.perf_counter() - t0

@@ -1,0 +1,125 @@
+"""Grouped-query attention with the variants the assigned archs need, as
+`repro.nn.attention`:
+
+- GQA/MQA (num_kv_heads <= num_heads), head_dim decoupled from d_model;
+- qk-norm (Qwen3), logit softcapping (Gemma2), sliding window (Gemma2
+  local layers);
+- RoPE / M-RoPE on the positions passed in;
+- the full causal path (training, prefill) and the decode path (one new
+  token against a KV cache).
+
+The attention is the JAX package's arithmetic, written out: q reshaped to
+(B, S, Hkv, group, D), logits in float32 divided by sqrt(D), the tanh
+softcap, masking with -1e30 and the softmax in float32, cast to v's
+dtype. (`scaled_dot_product_attention` has no softcap, and the JAX
+package has no attention kernel.) `AttnCfg.batch_axes`, a mesh reshard
+of q/k/v in JAX, is the identity here, as it is in JAX without a mesh.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .layers import einsum, linear, linear_init, rmsnorm, rmsnorm_init
+from .rope import apply_mrope, apply_rope
+
+
+class AttnCfg(NamedTuple):
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    logit_softcap: float = 0.0     # 0 disables
+    sliding_window: int = 0        # 0 = global
+    rope_theta: float = 10000.0
+    mrope_sections: tuple = ()     # non-empty enables M-RoPE
+    batch_axes: tuple = ()         # JAX's mesh reshard; identity here
+
+
+def attn_init(gen: torch.Generator, cfg: AttnCfg, *, dtype=torch.float32,
+              device=None) -> dict:
+    kw = dict(bias=False, dtype=dtype, device=device)
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {"q": linear_init(gen, cfg.d_model, H * D, **kw),
+         "k": linear_init(gen, cfg.d_model, Hkv * D, **kw),
+         "v": linear_init(gen, cfg.d_model, Hkv * D, **kw),
+         "o": linear_init(gen, H * D, cfg.d_model, **kw)}
+    if cfg.qk_norm:
+        p["qn"] = rmsnorm_init(D, dtype=dtype, device=device or gen.device)
+        p["kn"] = rmsnorm_init(D, dtype=dtype, device=device or gen.device)
+    return p
+
+
+def _project_qkv(p, cfg: AttnCfg, x, positions):
+    B, S, _ = x.shape
+    q = linear(p["q"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = linear(p["k"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = linear(p["v"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q, k = rmsnorm(p["qn"], q), rmsnorm(p["kn"], k)
+    if cfg.mrope_sections:
+        q = apply_mrope(q, positions, cfg.mrope_sections, theta=cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, theta=cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(cfg: AttnCfg, q, k, v, mask):
+    """q: (B,S,Hq,D), k/v: (B,T,Hkv,D), mask: (B,1,S,T) or broadcastable."""
+    group = cfg.num_heads // cfg.num_kv_heads
+    B, S, Hq, D = q.shape
+    qg = q.reshape(B, S, cfg.num_kv_heads, group, D)
+    logits = einsum("bskgd,btkd->bkgst", qg, k).float()
+    logits = logits / math.sqrt(D)
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    logits = torch.where(mask[:, :, None] if mask.dim() == 4 else mask,
+                         logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(B, S, Hq * D)
+
+
+def causal_mask(S: int, T=None, *, sliding_window=0, device=None):
+    """(1, 1, S, T) bool: query i (at absolute position i + T - S) sees key
+    j <= it, and with a window only the last `sliding_window` of them."""
+    T = T or S
+    i = torch.arange(S, device=device)[:, None] + (T - S)
+    j = torch.arange(T, device=device)[None, :]
+    m = j <= i
+    if sliding_window > 0:
+        m &= j > i - sliding_window
+    return m[None, None]
+
+
+def attn_forward(p, cfg: AttnCfg, x, positions):
+    """Training / prefill path. x: (B, S, d_model)."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    mask = causal_mask(x.shape[1], sliding_window=cfg.sliding_window,
+                       device=x.device)
+    return linear(p["o"], _sdpa(cfg, q, k, v, mask))
+
+
+def attn_decode(p, cfg: AttnCfg, x, positions, k_cache, v_cache, cache_len):
+    """One-token decode. x: (B,1,d); caches: (B,T,Hkv,D); cache_len: a
+    0-d integer tensor (or int), the new token's index.
+
+    Returns (out, new_k_cache, new_v_cache): new tensors, the token's k
+    and v written at `cache_len`; the caches passed in are not written."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    T = k_cache.shape[1]
+    idx = torch.as_tensor(cache_len, device=x.device).reshape(1).long()
+    k_cache = k_cache.index_copy(1, idx, k.to(k_cache.dtype))
+    v_cache = v_cache.index_copy(1, idx, v.to(v_cache.dtype))
+    j = torch.arange(T, device=x.device)[None, None, None, :]
+    mask = j <= cache_len                          # (1,1,1,T)
+    if cfg.sliding_window > 0:
+        mask &= j > cache_len - cfg.sliding_window
+    out = _sdpa(cfg, q, k_cache, v_cache, mask)
+    return linear(p["o"], out), k_cache, v_cache

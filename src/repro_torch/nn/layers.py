@@ -4,8 +4,12 @@ Weights are stored `(d_in, d_out)` and applied as `x @ w + b`; GRU weights
 are `(d_in, 3H)` / `(H, 3H)` with gate order r, z, n — the layout of
 `repro.nn.layers`, so a JAX parameter tree loads unchanged (see
 `repro_torch.weights`). Initialisers draw the same shapes and
-distributions as the JAX ones from a `torch.Generator`; the numbers
-differ, since the two generators differ.
+distributions as the JAX ones from a `torch.Generator`, on the
+generator's device; the numbers differ, since the two generators differ.
+
+Dtype policy, as in the JAX package: parameters are created in `dtype`
+(default float32); `apply` casts weights to the activation dtype, so one
+tree serves float32 and bfloat16 activations.
 """
 from __future__ import annotations
 
@@ -15,20 +19,56 @@ from typing import Sequence
 import torch
 
 
+# ---------------------------------------------------------------- helpers
+def _cast(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return w.to(x.dtype) if w.dtype != x.dtype else w
+
+
+def einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` with `jnp.einsum`'s dtype rule: operands of mixed
+    dtypes are promoted to their common dtype (bfloat16 with float32
+    gives float32) before the product."""
+    dtype = ops[0].dtype
+    for op in ops[1:]:
+        dtype = torch.promote_types(dtype, op.dtype)
+    return torch.einsum(spec, *(op.to(dtype) for op in ops))
+
+
+def _draw(gen: torch.Generator, shape) -> torch.Tensor:
+    """An empty float32 tensor on the generator's device, to draw into."""
+    return torch.empty(shape, dtype=torch.float32, device=gen.device)
+
+
 # ---------------------------------------------------------------- init
-def lecun_normal(gen: torch.Generator, shape, *, device=None) -> torch.Tensor:
-    """Standard normal truncated to [-2, 2], times 1/sqrt(fan_in), as
-    `repro.nn.layers.lecun_normal` (the truncated draw is not rescaled)."""
-    w = torch.empty(shape, dtype=torch.float32)
+def uniform_scale_init(gen: torch.Generator, shape, scale, *,
+                       dtype=torch.float32, device=None) -> torch.Tensor:
+    w = torch.nn.init.uniform_(_draw(gen, shape), -scale, scale,
+                               generator=gen)
+    return w.to(device=device, dtype=dtype)
+
+
+def lecun_normal(gen: torch.Generator, shape, *, in_axis=-2,
+                 dtype=torch.float32, device=None) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], times 1/sqrt(fan_in) (the
+    size of axis `in_axis`), as `repro.nn.layers.lecun_normal` (the
+    truncated draw is not rescaled)."""
+    w = _draw(gen, shape)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w / math.sqrt(shape[-2])).to(device)
+    return (w / math.sqrt(shape[in_axis])).to(device=device, dtype=dtype)
+
+
+def normal_init(gen: torch.Generator, shape, std=0.02, *,
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    w = torch.nn.init.normal_(_draw(gen, shape), generator=gen)
+    return (std * w).to(device=device, dtype=dtype)
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *, bias=True,
-                device=None) -> dict:
-    p = {"w": lecun_normal(gen, (d_in, d_out), device=device)}
+                dtype=torch.float32, device=None) -> dict:
+    p = {"w": lecun_normal(gen, (d_in, d_out), dtype=dtype, device=device)}
     if bias:
-        p["b"] = torch.zeros(d_out, dtype=torch.float32, device=device)
+        p["b"] = torch.zeros(d_out, dtype=dtype,
+                             device=device or gen.device)
     return p
 
 
@@ -44,24 +84,34 @@ def gru_init(gen: torch.Generator, d_in: int, d_h: int, *,
              device=None) -> dict:
     """GRU cell weights, uniform in ±1/sqrt(d_h), zero biases."""
     s = 1.0 / math.sqrt(d_h)
-
-    def uniform(shape):
-        w = torch.empty(shape, dtype=torch.float32)
-        return torch.nn.init.uniform_(w, -s, s, generator=gen).to(device)
-
     return {
-        "wi": uniform((d_in, 3 * d_h)),
-        "wh": uniform((d_h, 3 * d_h)),
+        "wi": uniform_scale_init(gen, (d_in, 3 * d_h), s, device=device),
+        "wh": uniform_scale_init(gen, (d_h, 3 * d_h), s, device=device),
         "bi": torch.zeros(3 * d_h, dtype=torch.float32, device=device),
         "bh": torch.zeros(3 * d_h, dtype=torch.float32, device=device),
     }
 
 
+def rmsnorm_init(d: int, *, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.zeros(d, dtype=dtype, device=device)}  # 1+scale
+
+
+def layernorm_init(d: int, *, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones(d, dtype=dtype, device=device),
+            "bias": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int, *,
+                   dtype=torch.float32, device=None) -> dict:
+    return {"table": normal_init(gen, (vocab, d), std=1.0 / math.sqrt(d),
+                                 dtype=dtype, device=device)}
+
+
 # ---------------------------------------------------------------- apply
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = x @ _cast(p["w"], x)
     if "b" in p:
-        y = y + p["b"]
+        y = y + _cast(p["b"], x)
     return y
 
 
@@ -84,3 +134,27 @@ def gru_cell(p: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     z = torch.sigmoid(iz + hz)
     n = torch.tanh(in_ + r * hn)
     return (1.0 - z) * n + z * h
+
+
+def rmsnorm(p: dict, x: torch.Tensor, *, eps=1e-6) -> torch.Tensor:
+    """Gemma-style RMSNorm, scaling by (1 + scale); normalised in float32
+    and cast back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    nx = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    return nx * (1.0 + _cast(p["scale"], x))
+
+
+def layernorm(p: dict, x: torch.Tensor, *, eps=1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    nx = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    return nx * _cast(p["scale"], x) + _cast(p["bias"], x)
+
+
+def embedding(p: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    t = p["table"]
+    if dtype is not None:
+        t = t.to(dtype)
+    return t[ids]

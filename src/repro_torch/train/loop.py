@@ -1,4 +1,4 @@
-"""Resumable, bucketed training of m4 (§3.3, §5.1) on one device.
+"""Resumable, bucketed training of m4 (§3.3, §5.1).
 
 The port of `repro.train.loop`:
 
@@ -14,8 +14,11 @@ The port of `repro.train.loop`:
   AdamW update per sim, in bucket order: the seed trainer's schedule,
   one graph of one sim's update replayed once per sim of the bucket (a
   counter on the device picks the sim). `step_mode="batch"` averages the
-  losses of the bucket's sims into one update. (The JAX package's pmap of
-  the batch step across devices is not ported.)
+  losses of the bucket's sims into one update; with more than one device
+  in `core.sharding.local_devices` (and at least one sim per device) the
+  bucket is sharded across them, JAX's pmap step: per-shard weighted
+  sums, summed on the first device, one update, counted as
+  "train_step_sharded".
 - **The differentiated step** runs the plain versions of the GRU pair and
   the GNN (`core.training`), never the kernels, which define no backward.
 - **Resume.** `TrainState` (params + AdamW moments + step + RNG key) is
@@ -57,14 +60,14 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core import compiled
+from ..core import compiled, sharding
 from ..core.events import EventBatch
 from ..core.model import M4Config, init_m4
 from ..core.training import adamw_step, event_scan_losses
 from ..kernels import dispatch
 from ..obs.registry import get_registry
 from ..obs.trace import get_tracer
-from ..optim import adamw_init
+from ..optim import adamw_init, adamw_update, clip_by_global_norm
 from ..optim.schedules import linear_warmup_cosine
 from ..runtime import checkpoint as ckpt
 from ..runtime.guards import check_finite, no_retrace
@@ -272,10 +275,163 @@ def make_bucket_step(m4cfg: M4Config, tc: TrainConfig, schedule) -> Callable:
         return step_program(update, params, opt, bb, per_sim=per_sim,
                             width=6)
 
-    def step(params, opt, bb):
+    def single_device_step(params, opt, bb):
         return cache.run(array_key(bb), bb["t"].device, build,
                          params, opt, bb)
+    if per_sim:
+        return single_device_step
+    sharded_step = _sharded_batch_step(m4cfg, tc, schedule)
+
+    def step(params, opt, bb):
+        devices = sharding.local_devices(bb["t"].device)
+        # a tiny tail bucket (fewer sims than devices): one device
+        if len(devices) == 1 or bb["t"].shape[0] < len(devices):
+            return single_device_step(params, opt, bb)
+        return sharded_step(params, opt, bb, devices)
     return step
+
+
+def _sharded_batch_step(m4cfg: M4Config, tc: TrainConfig, schedule):
+    """The batch step across devices, JAX's pmap step
+    (`repro.train.loop.make_bucket_step`, `partial_pmap`): the bucket's
+    sim axis sharded by `sharding.shard_leaves`, the pad replicas weighted
+    0. Each shard's program computes, on its device, weighted sums of the
+    loss, the three head losses and their gradients; the update program
+    on the first device sums them across shards (the psum), divides by
+    max(sum of weights, 1e-9) and applies one AdamW update, whose weights
+    and moments are the single replica returned (`out_axes=None`).
+
+    Its programs (one per shard shape and device, shared by the shards on
+    one device in turn, plus the update's) are cached as the step's own;
+    a call that builds any of them counts one "train_step_sharded", as
+    JAX counts one pmap trace."""
+    cache = compiled.StepCache(Counter(), "train_step_sharded")
+
+    def local_sums(params, bb, w):
+        tots, parts = _sim_loss(params, m4cfg, tc, bb)
+        return torch.stack([(tots * w).sum(), (parts["sldn"] * w).sum(),
+                            (parts["size"] * w).sum(),
+                            (parts["queue"] * w).sum(), w.sum()])
+
+    def build_update(params, opt, grads, sums):
+        return _update_program(tc, schedule, params, opt, len(grads))
+
+    def step(params, opt, bb, devices):
+        dev = bb["t"].device
+        B, D = bb["t"].shape[0], len(devices)
+        w = torch.ones(B, dtype=torch.float32, device=dev)
+        w = torch.cat([w, torch.zeros(-(-B // D) * D - B,
+                                      dtype=torch.float32, device=dev)])
+        bbs, ws = sharding.shard_leaves([bb, w], D)
+        key = array_key(bbs)
+        before = sum(cache.counts.values())
+        grads, sums = [], []
+        for i, shard_dev in enumerate(devices):
+            shard = {k: v[i].to(shard_dev) for k, v in bbs.items()}
+            g, s = cache.run(("shard",) + key, shard_dev,
+                             lambda *args: _shard_program(local_sums, *args),
+                             params, shard, ws[i].to(shard_dev))
+            grads.append(g)
+            sums.append(s)
+        out = cache.run(("update", D), dev, build_update, params, opt,
+                        grads, sums)
+        if sum(cache.counts.values()) != before:
+            TRACE_COUNTS["train_step_sharded"] += 1
+        return out
+    return step
+
+
+def _shard_program(local_sums, params, bb, w) -> compiled.StepProgram:
+    """One shard's program of the sharded batch step, on the device of
+    `bb`: its body takes `local_sums(params, bb, w) -> (5,)` (the weighted
+    sums of the loss and its three heads, and the weights' sum) and its
+    gradients in the weights, into buffers the program owns. A call
+    returns (gradients, sums) as new tensors on that device."""
+    dev = bb["t"].device
+    leaves = lambda t: [x for _, x in tree_leaves(t)]  # noqa: E731
+    p_buf = tree_map(lambda t: torch.empty_like(t, device=dev), params)
+    g_buf = tree_map(torch.empty_like, p_buf)
+    a_buf = {k: torch.empty_like(v) for k, v in bb.items()}
+    w_buf = torch.empty_like(w)
+    s_buf = torch.zeros(5, dtype=torch.float32, device=dev)
+
+    def load(params, bb, w):
+        with torch.no_grad():
+            for dst, src in zip(leaves(p_buf), leaves(params)):
+                dst.copy_(src)
+            for k, v in bb.items():
+                a_buf[k].copy_(v)
+            w_buf.copy_(w)
+
+    def body():
+        ps = tree_map(lambda p: p.detach().requires_grad_(), p_buf)
+        with torch.enable_grad():
+            sums = local_sums(ps, a_buf, w_buf)
+            sums[0].backward()
+        with torch.no_grad():
+            for dst, p in zip(leaves(g_buf), leaves(ps)):
+                if p.grad is None:
+                    dst.zero_()
+                else:
+                    dst.copy_(p.grad)
+            s_buf.copy_(sums.detach())
+
+    def result():
+        return tree_map(torch.clone, g_buf), s_buf.clone()
+
+    return compiled.StepProgram(
+        load=load, body=body, result=result, replays=1,
+        buffers=leaves(p_buf) + leaves(g_buf) + list(a_buf.values())
+        + [w_buf, s_buf])
+
+
+def _update_program(tc: TrainConfig, schedule, params, opt,
+                    shards: int) -> compiled.StepProgram:
+    """The update program of the sharded batch step, on the weights'
+    device: its body sums the shards' gradients and loss sums (the psum),
+    divides them by max(sum of weights, 1e-9), clips and applies one
+    AdamW update in place. A call takes (params, opt, the shards'
+    gradients, their sums) and returns (params, opt, outs) as new tensors,
+    outs (1, 6): [total, sldn, size, queue, lr, grad_norm]."""
+    leaves = lambda t: [x for _, x in tree_leaves(t)]  # noqa: E731
+    p_buf = tree_map(torch.empty_like, params)
+    o_buf = tree_map(torch.empty_like, opt)
+    g_buf = tree_map(lambda t: t.new_empty((shards,) + t.shape), params)
+    s_buf = torch.zeros(shards, 5, dtype=torch.float32,
+                        device=opt["step"].device)
+    outs = torch.zeros(1, 6, dtype=torch.float32, device=opt["step"].device)
+    state = leaves(p_buf) + leaves(o_buf)
+
+    def load(params, opt, grads, sums):
+        with torch.no_grad():
+            for dst, src in zip(state, leaves(params) + leaves(opt)):
+                dst.copy_(src)
+            for i, (g, s) in enumerate(zip(grads, sums)):
+                for dst, src in zip(leaves(g_buf), leaves(g)):
+                    dst[i].copy_(src)
+                s_buf[i].copy_(s)
+
+    def body():
+        with torch.no_grad():
+            total = s_buf.sum(0)
+            wsum = torch.clamp_min(total[4], 1e-9)
+            grads = tree_map(lambda g: g.sum(0) / wsum, g_buf)
+            grads, gn = clip_by_global_norm(grads, tc.clip_norm)
+            lr = schedule(o_buf["step"])
+            new_p, new_o = adamw_update(p_buf, grads, o_buf, lr=lr,
+                                        weight_decay=tc.weight_decay)
+            for dst, src in zip(state, leaves(new_p) + leaves(new_o)):
+                dst.copy_(src)
+            outs[0].copy_(torch.cat([total[:4] / wsum, lr.reshape(1),
+                                     gn.reshape(1)]))
+
+    def result():
+        clone = lambda t: t.detach().clone()  # noqa: E731
+        return tree_map(clone, p_buf), tree_map(clone, o_buf), outs.clone()
+
+    return compiled.StepProgram(
+        load=load, body=body, result=result, replays=1,
+        buffers=state + leaves(g_buf) + [s_buf, outs])
 
 
 def _history_path(ckpt_dir: str) -> str:

@@ -2,8 +2,10 @@
 
 Both packages use one tree: nested dicts of arrays, with `gnn` a list of
 per-round dicts, weights `(d_in, d_out)` and GRU weights `(d_in, 3H)` in
-gate order r, z, n. The bridge therefore copies leaves and changes
-nothing else; `params_to_numpy(params_from_jax(tree))` is bitwise `tree`.
+gate order r, z, n; the LM's trees are nested dicts of leaves stacked
+on a leading layer axis, bfloat16 at full size. The bridge therefore
+copies leaves and changes nothing else; for float32 trees
+`params_to_numpy(params_from_jax(tree))` is bitwise `tree`.
 The caller hands over the JAX tree as numpy arrays (`jax.device_get`), so
 this module needs no JAX.
 
@@ -34,11 +36,18 @@ def tree_map(fn, tree, *rest):
 
 def params_from_jax(tree, device) -> dict:
     """JAX parameter tree (leaves numpy-convertible) -> the port's
-    parameters: float32 tensors on `device`."""
+    parameters on `device`: float32 leaves as float32 tensors, bfloat16
+    leaves (numpy's `bfloat16` dtype of JAX's arrays) as `torch.bfloat16`
+    tensors carried bitwise through their 16-bit words."""
     def leaf(x):
+        if is_bfloat16(x):
+            words = np.ascontiguousarray(x).view(np.int16)
+            return torch.from_numpy(words.copy()).view(
+                torch.bfloat16).to(device)
         a = np.asarray(x)
         if a.dtype != np.float32:
-            raise TypeError(f"expected float32 weights, got {a.dtype}")
+            raise TypeError(f"expected float32 or bfloat16 weights, got "
+                            f"{a.dtype}")
         return torch.from_numpy(np.array(a, copy=True)).to(device)
     return tree_map(leaf, tree)
 

@@ -407,6 +407,14 @@ def _copy_port(tmp_path):
     ("train/loop.py",
      "        new_p, new_o, row = update(p_buf, o_buf, b)\n",
      "        row.tolist()\n"),
+    # the sharded batch step: a shard's sums (through the closure it is
+    # handed) and the update that sums the shards
+    ("train/loop.py",
+     "    def local_sums(params, bb, w):\n",
+     "        w.sum().item()\n"),
+    ("train/loop.py",
+     "            total = s_buf.sum(0)\n",
+     "            float(total[4])\n"),
 ])
 def test_item_inserted_into_a_captured_body_fails_the_gate(tmp_path, where):
     rel, anchor, inserted = where

@@ -5,8 +5,9 @@ port's checkpoints and blob store use its own codec, zlib and its own
 zstd decoder). The sweep engine, the training pipeline, the probes, the
 obs layer with its divergence observatory, the compiled event loops,
 the simulation service, the fleet with its resilience policies, the
-lint `repro_torch.analysis`, and the CLIs' modules are among those
-imported; none pulls in `ml_dtypes` either (the checkpoints write
+lint `repro_torch.analysis`, the multi-device sharding, the LM
+substrate (`nn`, `models`, `configs` and its ten config modules) and the
+CLIs' modules are among those imported; none pulls in `ml_dtypes` either (the checkpoints write
 bfloat16 leaves without it). That a spawned fleet worker
 imports neither is checked in tests/test_torch_fleet_spawn.py."""
 import ast
@@ -56,7 +57,16 @@ MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.sim.closedloop",
            "repro_torch.fleet.supervisor", "repro_torch.fleet.__main__",
            "repro_torch.analysis", "repro_torch.analysis.checkers",
            "repro_torch.analysis.findings", "repro_torch.analysis.baseline",
-           "repro_torch.analysis.__main__"]
+           "repro_torch.analysis.__main__", "repro_torch.core.sharding",
+           "repro_torch.nn", "repro_torch.nn.layers", "repro_torch.nn.rope",
+           "repro_torch.nn.attention", "repro_torch.nn.ssm",
+           "repro_torch.nn.moe", "repro_torch.models",
+           "repro_torch.models.arch", "repro_torch.models.lm",
+           "repro_torch.configs"] + [
+    f"repro_torch.configs.{a}" for a in (
+        "gemma2_9b", "yi_34b", "qwen3_14b", "gemma_7b", "qwen2_vl_7b",
+        "musicgen_medium", "moonshot_v1_16b_a3b", "llama4_scout_17b_a16e",
+        "mamba2_1p3b", "zamba2_2p7b")]
 
 
 def _forbidden(name: str) -> bool:
