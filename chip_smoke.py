@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (m4, flowSim and the LM substrate's
-serving path) on one NVIDIA card.
+serving and training paths) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -81,7 +81,7 @@ Phases, each printing one JSON line:
                  --check` over the spans and the 16 probe files;
 9. train       — m4's training path at full width: the packet DES on two
                  Table-2 scenario specs, cut from 2000 to TRAIN_FLOWS =
-                 500 flows (K = 1000 events each), and their event
+                 250 flows (K = 500 events each), and their event
                  tensors (build_dataset); `fit` per sim (two epochs, two
                  updates each, one bucket shape, the TrainConfig defaults)
                  through the compiled step (one CUDA graph of the update
@@ -98,7 +98,7 @@ Phases, each printing one JSON line:
                  event, timed and profiled (40 events), and a compiled
                  step over the same events captured, replayed and
                  profiled (kernels per event, device busy share); batch
-                 mode the same way (both sims cut to 500 events, two
+                 mode the same way (both sims cut to 250 events, two
                  epochs of one update); one update on the card against
                  the CPU (200 events); resume from a checkpoint against
                  an uninterrupted run, bitwise, each fit that trains
@@ -197,7 +197,31 @@ Phases, each printing one JSON line:
                  one SSD chunk and 16 decode steps; moonshot-v1-16b-a3b 1
                  layer: forward on 16 tokens) at rtol 1e-4; no kernel of
                  the port launched;
-16. files      — the port's file formats on this machine (no msgpack,
+16. lm_train   — the LM's training and launch layer, plain PyTorch:
+                 zamba2-2.7b as published (54 layers, d 2560, bf16, seed
+                 0 on the card) through `repro_torch.launch.train.train`
+                 at global batch 8 and seq LM_SEQ = 256 (one SSD chunk:
+                 the CLI's default 128 fails the scan's S % 256 check, in
+                 the JAX package too) for LM_TRAIN_STEPS steps: s for the
+                 first step and the steady ones, peak memory, the leaf
+                 dtypes after each step (weights float32 after the first,
+                 moments after the second, as JAX), finite losses and
+                 gradient norms; at one shared-attention group
+                 (LM_CUT_LAYERS) and d_model LM_RESUME_D_MODEL a crash
+                 at step 2 and `resume="auto"` against the uninterrupted
+                 run (rtol 1e-5), the checkpoint's bytes, save and
+                 restore walls (at zamba2's own width it is
+                 tools/lm_train_phase.py's); at one group and full width
+                 3 steps with
+                 `compress_frac=0.01`; the card against the CPU in
+                 float32, TF32 off (zamba2 at one group, moonshot-v1-16b-
+                 a3b at 1 layer and S 64, B 1, 3 steps, losses at rtol
+                 1e-4);
+                 examples/train_lm_torch.py --ci (60 steps, the loss
+                 falls); the dry-run's `gemma2-9b train_4k 16x16` cell on
+                 a fake process group (collectives by kind, FLOPs, wall)
+                 and its H100 roofline; no kernel of the port launched;
+17. files      — the port's file formats on this machine (no msgpack,
                  zstandard or ml_dtypes): a tree with a torch.bfloat16
                  CUDA leaf through the checkpoint's save and restore,
                  bitwise, one tree_digest before and after; a bare
@@ -236,7 +260,7 @@ PORT_KERNELS = ("gru_pair_kernel", "bipartite_rounds_kernel",
 GRU_TOL = 1e-5
 GNN_TOL = 1e-4
 FCT_RTOL = 1e-4
-TRAIN_FLOWS = 500      # flows of the train phase's sims (see phase_train)
+TRAIN_FLOWS = 250      # flows of the train phase's sims (see phase_train)
 SWEEP_FLOWS = 200      # smoke16's base flow count in the sweep phase
 CLI_FLOWS = 500        # flows of the training CLI's sims (sweep phase)
 PROBE_STRIDE = 4       # probes phase: a sample every 4 events ...
@@ -252,6 +276,16 @@ SHARD_TRAIN_FLOWS = 100    # sharded phase: 3 sims cut to K = 200 events
 LM_PREFILL = 1024          # lm phase: prefill tokens (4 SSD chunks) ...
 LM_DECODE_STEPS = 64       # ... and decode steps, at B = 2
 LM_DECODE_TOL = 5e-3       # decode vs forward, float32 (JAX's own bound)
+LM_TRAIN_STEPS = 4         # lm_train phase: zamba2-2.7b at full size ...
+LM_CUT_LAYERS = 6          # ... then at one shared-attention group
+LM_SEQ = 256               # one SSD chunk: zamba2's scan needs S % 256 == 0,
+                           # in JAX too, so the CLI's default 128 fails
+LM_RESUME_D_MODEL = 128    # ... the resume at this width: at zamba2's own
+                           # 2560 the step-2 checkpoint is 4.86 GB, 304-315 s
+                           # of the host's zlib, which this script's limit
+                           # does not hold; tools/lm_train_phase.py runs it
+LM_RESUME_RTOL = 1e-5      # resumed losses (tests/test_runtime.py:82)
+LM_CPU_RTOL = 1e-4         # the card against the CPU, float32
 # a worker-targeted fault fires only in a worker that claims a task, so
 # the kill targets both workers of the pool: the first to claim dies
 FLEET_CHAOS = ("kill:worker=0,after=1;kill:worker=1,after=1;"
@@ -2718,6 +2752,258 @@ def phase_lm(torch, np, dev, smi):
          launches=counts, card=smi)
 
 
+def lm_train_steps(torch, c, params, device, n, batch, seq):
+    """n steps of `make_train_step` from `params` on `device`, with
+    `train`'s data, schedule and donation; returns the losses."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import adamw_init, linear_warmup_cosine
+    from repro_torch.weights import tree_map
+
+    step = make_train_step(c, linear_warmup_cosine(3e-4, 1, n))
+    pipe = TokenPipeline(vocab=c.vocab, seq_len=seq, global_batch=batch)
+    state = [params, adamw_init(params),
+             tree_map(lambda x: torch.zeros((0,), dtype=x.dtype,
+                                            device=device), params)]
+    del params
+    losses = []
+    for i in range(n):
+        b = {k: torch.from_numpy(v).to(device)
+             for k, v in pipe.batch(i).items()}
+        state, loss, _ = step.donated(state, b, torch.full(
+            (), i, dtype=torch.int32, device=device))
+        losses.append(float(loss))
+    return losses
+
+
+def phase_lm_train(torch, np, dev, smi, resume_d_model=None):
+    """The LM's training and launch layer (`repro_torch.launch`, plain
+    PyTorch: no TPU kernel, and none of the port's launches). zamba2-2.7b
+    as published through `train` at the CLI's defaults, each step timed
+    (a spy on the donating step the loop takes; the loop reads the loss
+    every step, so it synchronises anyway) with its leaf dtypes; at one
+    shared-attention group the crash and resume (at width
+    `resume_d_model`, default zamba2's own) and the compressed step; the
+    card against the CPU; the `--ci` example; one dry-run cell and its
+    roofline. It drops the compiled programs earlier phases cached, which
+    no later phase reads."""
+    import importlib.util
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import compiled
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import init_fake_group
+    from repro_torch.models import lm
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.weights import params_to, tree_leaves
+
+    t_phase = time.perf_counter()
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    # the earlier phases' captured programs hold device memory that the
+    # full-size step (~59 GB above what is allocated) needs
+    held = torch.cuda.memory_allocated()
+    compiled.clear_compiled()
+    torch.cuda.empty_cache()
+    emit("lm_train", step="memory", allocated_before_bytes=held,
+         allocated_after_clearing_bytes=torch.cuda.memory_allocated(),
+         card=smi)
+    cfg = configs.get_config("zamba2-2.7b")
+    cut = cfg.with_(num_layers=LM_CUT_LAYERS)
+
+    def quiet(*a):
+        pass
+
+    def finite(name, xs):
+        if not all(np.isfinite(x) for x in xs):
+            raise AssertionError(f"lm_train {name}: not finite: {xs}")
+
+    def dtypes(tree):
+        return sorted({str(x.dtype).replace("torch.", "")
+                       for _, x in tree_leaves(tree)})
+
+    # ---- full size through train(), each step timed
+    steps = []
+    make = T.make_train_step
+
+    def spied(*a, **kw):
+        step = make(*a, **kw)
+        inner = step.donated
+
+        def donated(state, batch, i):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(state, batch, i)
+            torch.cuda.synchronize()
+            (p, o, _), loss, gn = out
+            steps.append({"s": time.perf_counter() - t0, "loss": float(loss),
+                          "gn": float(gn), "params": dtypes(p),
+                          "m": dtypes(o["m"]), "v": dtypes(o["v"])})
+            return out
+        step.donated = donated
+        return step
+
+    base = peak_mark(torch)
+    T.make_train_step = spied
+    try:
+        _, losses = T.train(cfg, steps=LM_TRAIN_STEPS, seq_len=LM_SEQ,
+                            device=dev, log=quiet)
+    finally:
+        T.make_train_step = make
+    peak = torch.cuda.max_memory_allocated() - base
+    finite("full-size losses", losses + [s["gn"] for s in steps])
+    want = [(["float32"], ["bfloat16"]), (["float32"], ["float32"])]
+    got = [(s["params"], s["m"]) for s in steps[:2]]
+    emit("lm_train", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype=str(cfg.dtype),
+         params=cfg.param_count(), global_batch=8, seq=LM_SEQ,
+         steps=LM_TRAIN_STEPS, first_step_s=steps[0]["s"],
+         steady_step_s=sum(s["s"] for s in steps[1:]) / (len(steps) - 1),
+         step_s=[s["s"] for s in steps], losses=losses,
+         grad_norms=[s["gn"] for s in steps],
+         leaf_dtypes=[{k: s[k] for k in ("params", "m", "v")}
+                      for s in steps],
+         peak_added_bytes=peak, card=smi)
+    if got != want:
+        raise AssertionError(f"lm_train: leaf dtypes {got}, JAX's {want}")
+    torch.cuda.empty_cache()
+
+    # ---- one shared-attention group at `resume_d_model`: crash at step 2
+    # and resume, the checkpoint's save and restore timed where `train`
+    # calls them
+    narrow = cut.with_(d_model=resume_d_model or cut.d_model)
+    _, full = T.train(narrow, steps=4, seq_len=LM_SEQ, device=dev,
+                      log=quiet)
+    walls = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            walls[name] = time.perf_counter() - t0
+            return out
+        return call
+
+    save, restore = ckpt.save, ckpt.restore
+    ckpt.save, ckpt.restore = timed("save", save), timed("restore", restore)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            _, head = T.train(narrow, steps=4, seq_len=LM_SEQ, ckpt_dir=d,
+                              ckpt_every=2, crash_at=2, device=dev,
+                              log=quiet)
+            step_dir = os.path.join(d, "step_0000000002")
+            ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                             for f in os.listdir(step_dir))
+            # crash_at=4 ends the resumed run before its final save
+            _, tail = T.train(narrow, steps=4, seq_len=LM_SEQ, ckpt_dir=d,
+                              ckpt_every=100, resume="auto", crash_at=4,
+                              device=dev, log=quiet)
+    finally:
+        ckpt.save, ckpt.restore = save, restore
+    save_s, restore_s = walls["save"], walls["restore"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(head + tail, full))
+    emit("lm_train", step="resume", arch=narrow.name,
+         layers=narrow.num_layers, d_model=narrow.d_model,
+         params=narrow.param_count(), losses=full, resumed=head + tail,
+         max_rel_gap=gap, rtol=LM_RESUME_RTOL, ckpt_bytes=ckpt_bytes,
+         save_s=save_s, restore_s=restore_s, card=smi)
+    finite("resume losses", full + head + tail)
+    if len(head) != 2 or len(tail) != 2 or gap > LM_RESUME_RTOL:
+        raise AssertionError(f"lm_train: resumed {head + tail} against "
+                             f"{full}")
+
+    # ---- one shared-attention group, compressed gradients
+    t0 = time.perf_counter()
+    _, closs = T.train(cut, steps=3, seq_len=LM_SEQ, compress_frac=0.01,
+                       device=dev, log=quiet)
+    torch.cuda.synchronize()
+    emit("lm_train", step="compress", arch=cut.name, layers=cut.num_layers,
+         compress_frac=0.01, losses=closs,
+         s_per_step=(time.perf_counter() - t0) / 3, card=smi)
+    finite("compressed losses", closs)
+    torch.cuda.empty_cache()
+
+    # ---- the card against the CPU, float32, TF32 off
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # moonshot at S 64: its CPU steps are led by 1.24e9 parameters'
+        # AdamW and its 163840-word vocabulary
+        for arch, layers, seq in (("zamba2-2.7b", LM_CUT_LAYERS, LM_SEQ),
+                                  ("moonshot-v1-16b-a3b", 1, 64)):
+            c = configs.get_config(arch).with_(num_layers=layers,
+                                               dtype=torch.float32)
+            p = lm.init_params(torch.Generator(device=dev).manual_seed(2), c)
+            p_cpu = params_to(p, "cpu")
+            card = lm_train_steps(torch, c, p, dev, 3, 1, seq)
+            del p
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            cpu = lm_train_steps(torch, c, p_cpu, "cpu", 3, 1, seq)
+            cpu_s = time.perf_counter() - t0
+            del p_cpu
+            gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+            emit("lm_train", step="cpu", arch=arch, layers=layers,
+                 d_model=c.d_model, global_batch=1, seq=seq,
+                 card_losses=card,
+                 cpu_losses=cpu, max_rel_gap=gap, rtol=LM_CPU_RTOL,
+                 cpu_wall_s=cpu_s, card=smi)
+            finite(f"{arch} card", card)
+            if gap > LM_CPU_RTOL:
+                raise AssertionError(f"lm_train {arch}: card {card} against "
+                                     f"CPU {cpu}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    # ---- examples/train_lm_torch.py --ci
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", os.path.join(ROOT, "examples", "train_lm_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ex = example.main(["--ci", "--ckpt-dir", d, "--device", str(dev)])
+    emit("lm_train", step="example", script="examples/train_lm_torch.py --ci",
+         steps=len(ex), first_loss=ex[0], last_loss=ex[-1],
+         wall_s=time.perf_counter() - t0, card=smi)
+    if not ex[-1] < ex[0]:
+        raise AssertionError(f"lm_train example: loss {ex[0]} -> {ex[-1]}")
+
+    # ---- the dry-run's cell and its roofline, on a fake process group
+    init_fake_group()
+    try:
+        rec = dryrun.lower_cell("gemma2-9b", "train_4k", False,
+                                verbose=False)
+        roof = roofline.analyze_cell("gemma2-9b", "train_4k", log=quiet)
+    finally:
+        dist.destroy_process_group()
+    emit("lm_train", step="dryrun", cell="gemma2-9b train_4k 16x16",
+         collective_kinds=rec["collective_kinds"],
+         collective_ops=rec["collective_ops"],
+         collective_bytes=rec["collective_bytes"], flops=rec["flops"],
+         wall_s=rec["lower_s"], roofline={k: roof[k] for k in (
+             "flops_dev", "bytes_dev", "coll_bytes_dev", "t_compute_s",
+             "t_memory_s", "t_collective_s", "dominant", "useful_ratio",
+             "roofline_fraction", "analysis_s")},
+         torch=torch.__version__, card=smi)
+    if not rec["collective_ops"] or not rec["flops"]:
+        raise AssertionError(f"lm_train dryrun: empty census {rec}")
+
+    counts = {k: f.launches for k, f in counters.items()}
+    if counts != launches():
+        raise AssertionError(f"lm_train: a kernel of the port launched: "
+                             f"{counts}")
+    emit("lm_train", step="phase", seconds=time.perf_counter() - t_phase,
+         launches=counts, card=smi)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2821,6 +3107,7 @@ def main() -> int:
     fabric_launches = phase_fabric(torch, np, m4, fs, params, cfg, dev, smi)
     sharded_launches = phase_sharded(torch, np, m4, fs, cfg, dev, smi)
     phase_lm(torch, np, dev, smi)
+    phase_lm_train(torch, np, dev, smi, LM_RESUME_D_MODEL)
     phase_files(torch, np, dev)
 
     sources = {"fused_gru_pair": ("src/repro_torch/kernels/csrc/fused_gru.cu",

@@ -35,6 +35,10 @@ reference it is held against, but imports nothing of it (nor `jax`):
     repro_torch.runtime    checkpoints, blob store and leases, zstd
                            reader, guards (no_retrace), fault-tolerance
                            policies
+    repro_torch.launch     the LM's trainer (python -m
+                           repro_torch.launch.train), meshes and sharding
+                           rules on DTensor, the dry-run's collective
+                           census and the H100 roofline
     repro_torch.weights    the bridge from a JAX parameter tree
     repro_torch.analysis   the port's lint, pure `ast`
                            (python -m repro_torch.analysis --check)

@@ -42,8 +42,9 @@ class ArchCfg:
     ssm_chunk: int = 128
     # hybrid: one shared attention block applied every N ssm layers (zamba2)
     hybrid_attn_every: int = 0
-    # perf knobs of the JAX package's TPU launch layer; defaults = baseline.
-    # Both are the identity here (no mesh reshard, no optimization barrier)
+    # perf knobs of the launch layer; defaults = baseline. attn_batch_axes
+    # reshards DTensor q/k/v over those mesh axes (nn.attention);
+    # comm_barriers (XLA's optimization barrier) is the identity here
     attn_batch_axes: Tuple[str, ...] = ()
     comm_barriers: bool = False
     # modality frontend (stub): none | vision | audio

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..launch.sharding import activation
 from ..nn import (AttnCfg, MoECfg, SSMCfg, attn_decode, attn_forward,
                   attn_init, embedding, embedding_init, lecun_normal, linear,
                   linear_init, moe_forward, moe_init, rmsnorm, rmsnorm_init,
@@ -91,8 +92,8 @@ def _attn_block_init(gen, cfg: ArchCfg, *, local: bool, **kw):
 
 
 def _attn_block(p, cfg: ArchCfg, x, positions, *, local: bool):
-    a = attn_forward(p["attn"], _attn_cfg(cfg, local=local),
-                     rmsnorm(p["ln1"], x), positions)
+    a = activation(attn_forward(p["attn"], _attn_cfg(cfg, local=local),
+                                    rmsnorm(p["ln1"], x), positions))
     if cfg.sandwich_norm:
         a = rmsnorm(p["ln1p"], a)
     x = x + a
@@ -102,6 +103,7 @@ def _attn_block(p, cfg: ArchCfg, x, positions, *, local: bool):
         f, aux = moe_forward(p["moe"], _moe_cfg(cfg), h)
     else:
         f = _ffn(p["ffn"], cfg, h)
+    f = activation(f)
     if cfg.sandwich_norm:
         f = rmsnorm(p["ln2p"], f)
     return x + f, aux
@@ -112,6 +114,7 @@ def _attn_block_decode(p, cfg: ArchCfg, x, positions, kc, vc, cache_len, *,
     a, kc, vc = attn_decode(p["attn"], _attn_cfg(cfg, local=local),
                             rmsnorm(p["ln1"], x), positions, kc, vc,
                             cache_len)
+    a = activation(a)
     if cfg.sandwich_norm:
         a = rmsnorm(p["ln1p"], a)
     x = x + a
@@ -120,6 +123,7 @@ def _attn_block_decode(p, cfg: ArchCfg, x, positions, kc, vc, cache_len, *,
         f, _ = moe_forward(p["moe"], _moe_cfg(cfg), h)
     else:
         f = _ffn(p["ffn"], cfg, h)
+    f = activation(f)
     if cfg.sandwich_norm:
         f = rmsnorm(p["ln2p"], f)
     return x + f, kc, vc
@@ -131,13 +135,14 @@ def _ssm_block_init(gen, cfg: ArchCfg, **kw):
 
 
 def _ssm_block(p, cfg: ArchCfg, x):
-    return x + ssm_forward(p["ssm"], _ssm_cfg(cfg), rmsnorm(p["ln"], x))
+    return x + activation(ssm_forward(p["ssm"], _ssm_cfg(cfg),
+                                          rmsnorm(p["ln"], x)))
 
 
 def _ssm_block_decode(p, cfg: ArchCfg, x, conv_s, ssm_s):
     y, conv_s, ssm_s = ssm_decode(p["ssm"], _ssm_cfg(cfg),
                                   rmsnorm(p["ln"], x), conv_s, ssm_s)
-    return x + y, conv_s, ssm_s
+    return x + activation(y), conv_s, ssm_s
 
 
 # ------------------------------------------------------------------ init
@@ -157,7 +162,8 @@ def _depth(tree) -> int:
 
 def init_params(gen: torch.Generator, cfg: ArchCfg, *, device=None) -> dict:
     """The LM's parameters in `cfg.dtype`, drawn from `gen` on its device
-    and placed on `device` (default: the generator's)."""
+    and placed on `device` (default: the generator's). With
+    `device="meta"` nothing is drawn: shapes and dtypes only."""
     kw = dict(dtype=cfg.dtype, device=device or gen.device)
     params = {"final_norm": rmsnorm_init(cfg.d_model, **kw),
               "embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model,
@@ -230,13 +236,14 @@ def _layers(body, x, stacked, *, remat: bool):
     auxs = []
     for i in range(n):
         x, aux = body(x, _layer(stacked, i))
+        x = activation(x)
         auxs.append(aux)
     return x, torch.stack(auxs)
 
 
 def backbone(params, cfg: ArchCfg, batch, *, remat=True, unroll=False):
     """Full-sequence backbone. Returns (hidden (B,S,D), aux_loss)."""
-    x = _embed_in(params, cfg, batch)
+    x = activation(_embed_in(params, cfg, batch))
     B, S, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
@@ -347,6 +354,7 @@ def _layers_decode(body, x, xs):
     ys = []
     for i in range(n):
         x, y = body(x, [_layer(t, i) for t in xs])
+        x = activation(x)
         ys.append(y)
     return x, [torch.stack(col) for col in zip(*ys)]
 
@@ -355,7 +363,7 @@ def serve_step(params, cfg: ArchCfg, state, batch, *, unroll=False):
     """One decode step: batch has tokens (B,1) (or embeds (B,1,D)).
     Returns (state, logits (B, vocab)): the dict `state` with its entries
     replaced by new tensors, as the JAX package does."""
-    x = _embed_in(params, cfg, batch)
+    x = activation(_embed_in(params, cfg, batch))
     B = x.shape[0]
     t = state["cache_len"]
     positions = t.to(torch.int32).reshape(1, 1).expand(B, 1)

@@ -12,8 +12,11 @@ The attention is the JAX package's arithmetic, written out: q reshaped to
 (B, S, Hkv, group, D), logits in float32 divided by sqrt(D), the tanh
 softcap, masking with -1e30 and the softmax in float32, cast to v's
 dtype. (`scaled_dot_product_attention` has no softcap, and the JAX
-package has no attention kernel.) `AttnCfg.batch_axes`, a mesh reshard
-of q/k/v in JAX, is the identity here, as it is in JAX without a mesh.
+package has no attention kernel.) On DTensors (the dry-run's meshes)
+each rank attends over its own rows and heads (`launch.sharding.
+per_shard`); `AttnCfg.batch_axes`, JAX's sharding constraint on q/k/v,
+then splits the batch over those mesh axes alone. On plain tensors it
+is the identity, as it is in JAX without a mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..launch import sharding
 from .layers import einsum, linear, linear_init, rmsnorm, rmsnorm_init
 from .rope import apply_mrope, apply_rope
 
@@ -53,11 +57,17 @@ def attn_init(gen: torch.Generator, cfg: AttnCfg, *, dtype=torch.float32,
     return p
 
 
+def _heads(t, H, D):
+    """(B, S, H*D) -> (B, S, H, D)."""
+    t = sharding.whole_heads(t, H)
+    return t.reshape(t.shape[0], t.shape[1], H, D)
+
+
 def _project_qkv(p, cfg: AttnCfg, x, positions):
     B, S, _ = x.shape
-    q = linear(p["q"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = linear(p["k"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(p["v"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = _heads(linear(p["q"], x), cfg.num_heads, cfg.head_dim)
+    k = _heads(linear(p["k"], x), cfg.num_kv_heads, cfg.head_dim)
+    v = _heads(linear(p["v"], x), cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q, k = rmsnorm(p["qn"], q), rmsnorm(p["kn"], k)
     if cfg.mrope_sections:
@@ -103,7 +113,38 @@ def attn_forward(p, cfg: AttnCfg, x, positions):
     q, k, v = _project_qkv(p, cfg, x, positions)
     mask = causal_mask(x.shape[1], sliding_window=cfg.sliding_window,
                        device=x.device)
-    return linear(p["o"], _sdpa(cfg, q, k, v, mask))
+    return linear(p["o"], _attend(cfg, q, k, v, mask))
+
+
+def _attend(cfg: AttnCfg, q, k, v, mask):
+    """`_sdpa`, on DTensors by each rank over its own rows and heads
+    (`sharding.per_shard`: DTensor cannot shard the products, which
+    flatten batch and heads into one dimension). With `cfg.batch_axes`
+    the batch goes over those axes and nothing else (the DeepSpeed-Ulysses
+    pattern: the S x S logits never cross devices). Otherwise the q heads
+    split into n parts where n divides them and the kv heads divide n or
+    n them; in the latter case each rank's q heads share one kv head, its
+    slice of the replicated k and v."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    rank, n = sharding.head_split(q)
+    split = (not cfg.batch_axes and H % n == 0
+             and (Hkv % n == 0 or n % Hkv == 0))
+    if not split:
+        rank, n = 0, 1
+    shared = Hkv % n != 0
+    local = cfg._replace(num_heads=H // n,
+                         num_kv_heads=1 if shared else Hkv // n)
+    kv = rank * (H // n) // (H // Hkv)
+
+    def attend(q, k, v, mask):
+        if shared:
+            k, v = k[:, :, kv:kv + 1], v[:, :, kv:kv + 1]
+        return _sdpa(local, q, k, v, mask)
+
+    kv_dims = (0, None) if shared else (0, 2)
+    return sharding.per_shard(
+        attend, (q, k, v, mask), ((0, 2), kv_dims, kv_dims, (None, None)),
+        ((0, 2),), heads=H if split else None, over=cfg.batch_axes)
 
 
 def attn_decode(p, cfg: AttnCfg, x, positions, k_cache, v_cache, cache_len):
@@ -121,5 +162,5 @@ def attn_decode(p, cfg: AttnCfg, x, positions, k_cache, v_cache, cache_len):
     mask = j <= cache_len                          # (1,1,1,T)
     if cfg.sliding_window > 0:
         mask &= j > cache_len - cfg.sliding_window
-    out = _sdpa(cfg, q, k_cache, v_cache, mask)
+    out = _attend(cfg, q, k_cache, v_cache, mask)
     return linear(p["o"], out), k_cache, v_cache

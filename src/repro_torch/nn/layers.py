@@ -18,6 +18,8 @@ from typing import Sequence
 
 import torch
 
+from ..launch import sharding
+
 
 # ---------------------------------------------------------------- helpers
 def _cast(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -34,15 +36,19 @@ def einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
     return torch.einsum(spec, *(op.to(dtype) for op in ops))
 
 
-def _draw(gen: torch.Generator, shape) -> torch.Tensor:
-    """An empty float32 tensor on the generator's device, to draw into."""
+def _draw(gen: torch.Generator, shape, device=None) -> torch.Tensor:
+    """An empty float32 tensor on the generator's device, to draw into; on
+    the `meta` device when that is where the weight goes (no storage, and
+    `torch.nn.init` draws nothing into it: JAX's `eval_shape`)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.empty(shape, dtype=torch.float32, device=gen.device)
 
 
 # ---------------------------------------------------------------- init
 def uniform_scale_init(gen: torch.Generator, shape, scale, *,
                        dtype=torch.float32, device=None) -> torch.Tensor:
-    w = torch.nn.init.uniform_(_draw(gen, shape), -scale, scale,
+    w = torch.nn.init.uniform_(_draw(gen, shape, device), -scale, scale,
                                generator=gen)
     return w.to(device=device, dtype=dtype)
 
@@ -52,14 +58,14 @@ def lecun_normal(gen: torch.Generator, shape, *, in_axis=-2,
     """Standard normal truncated to [-2, 2], times 1/sqrt(fan_in) (the
     size of axis `in_axis`), as `repro.nn.layers.lecun_normal` (the
     truncated draw is not rescaled)."""
-    w = _draw(gen, shape)
+    w = _draw(gen, shape, device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w / math.sqrt(shape[in_axis])).to(device=device, dtype=dtype)
 
 
 def normal_init(gen: torch.Generator, shape, std=0.02, *,
                 dtype=torch.float32, device=None) -> torch.Tensor:
-    w = torch.nn.init.normal_(_draw(gen, shape), generator=gen)
+    w = torch.nn.init.normal_(_draw(gen, shape, device), generator=gen)
     return (std * w).to(device=device, dtype=dtype)
 
 
@@ -157,4 +163,8 @@ def embedding(p: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
     t = p["table"]
     if dtype is not None:
         t = t.to(dtype)
-    return t[ids]
+    # on DTensors each rank looks up its own ids in the whole table:
+    # DTensor's rule for the lookup's backward (`index_put`) fails in
+    # some torch versions
+    return sharding.per_shard(lambda t, ids: t[ids], (t, ids),
+                              ((None, None), (0, None)), ((0, None),))

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..launch import sharding
 from .layers import (einsum, lecun_normal, linear, linear_init, rmsnorm,
                      rmsnorm_init)
 
@@ -107,6 +108,17 @@ def _ssd_chunked(xh, dtA, Bm, Cm, chunk: int, h0=None):
     return y.to(xh.dtype), h.to(xh.dtype)
 
 
+def _ssd(xh, dtA, Bm, Cm, chunk: int):
+    """`_ssd_chunked`, on DTensors by each rank over its own rows and
+    heads (`sharding.per_shard`: DTensor cannot shard the scan's products,
+    which flatten batch and heads into one dimension); B and C, one group
+    shared by the heads, come whole to each rank."""
+    return sharding.per_shard(
+        lambda xh, dtA, Bm, Cm: _ssd_chunked(xh, dtA, Bm, Cm, chunk),
+        (xh, dtA, Bm, Cm), ((0, 2), (0, 2), (0, None), (0, None)),
+        ((0, 2), (0, 1)), heads=xh.shape[2])
+
+
 def _split_in_proj(cfg: SSMCfg, zxbcdt):
     """z, x, B, C, dt of the input projection."""
     di, ds = cfg.d_inner, cfg.d_state
@@ -127,7 +139,7 @@ def ssm_forward(p, cfg: SSMCfg, x):
     dtA = dt * A                                              # log-decay
     xh = xr.reshape(B_, S, cfg.nheads, cfg.head_dim)
     xh_dt = xh * dt[..., None].to(x.dtype)
-    y, _ = _ssd_chunked(xh_dt, dtA, Bm, Cm, cfg.chunk)
+    y, _ = _ssd(xh_dt, dtA, Bm, Cm, cfg.chunk)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(B_, S, cfg.d_inner)
     y = rmsnorm(p["norm"], y * F.silu(z))

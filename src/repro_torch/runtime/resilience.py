@@ -15,9 +15,10 @@ supervisor (`repro_torch.fleet.supervisor`) enforces on every run:
    (crashes, timeouts, transient I/O: the chunk deserves another worker)
    and poison (deterministic failures: re-running reproduces them, so
    the chunk is quarantined to the poison manifest).
-
-The JAX module's fourth policy, `remesh` (re-sharding a checkpoint onto
-a new device mesh), belongs to multi-device runs and is not here.
+4. **Elastic scaling**: `remesh` re-shards a checkpointed tree onto a new
+   `DeviceMesh` by replaying sharding rules against it (grow/shrink of
+   `data` ranks never touches replicated weights). `StepDeadline` and
+   `Timed` also serve the LM launch harness (`launch/train.py`).
 """
 from __future__ import annotations
 
@@ -118,3 +119,26 @@ class Timed:
 
     def __exit__(self, *a):
         self.dt = time.perf_counter() - self.t0
+
+
+def remesh(tree, rule_fn, new_mesh):
+    """Re-shard a tree of tensors onto `new_mesh` using the same rule
+    function.
+
+    rule_fn(path, leaf) -> spec (`launch.sharding`). Works for both elastic
+    grow and shrink because specs are expressed in axis names, not device
+    counts. A leaf that is already a DTensor (on another mesh) is gathered
+    first.
+    """
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from ..launch.sharding import placements
+    from ..weights import tree_map_with_path
+
+    def place(path, leaf):
+        spec = rule_fn(path, leaf)
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        return distribute_tensor(leaf, new_mesh, placements(spec, new_mesh))
+
+    return tree_map_with_path(place, tree)

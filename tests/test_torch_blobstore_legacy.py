@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 msgpack = pytest.importorskip("msgpack")
 
 from repro.runtime import blobstore as jax_blobstore  # noqa: E402

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 jax = pytest.importorskip("jax")
 
 from repro.core import flowsim_fast as jff  # noqa: E402

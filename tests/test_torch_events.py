@@ -8,7 +8,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+# one torch thread: the suite's xdist workers share the host's cores
+pytest.importorskip("torch").set_num_threads(1)
 pytest.importorskip("jax")
 
 from repro.core.events import EventBatch as JaxEventBatch  # noqa: E402

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 jax = pytest.importorskip("jax")
 
 from repro.core import model as jm  # noqa: E402

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 pytest.importorskip("jax")
 
 import repro.fleet as jfleet  # noqa: E402

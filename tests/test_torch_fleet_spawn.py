@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 
 from repro_torch.fleet import (FleetConfig, SweepJob, parse_plan,  # noqa: E402
                                run_fleet, sweep_job_for, sweep_tasks)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 jax = pytest.importorskip("jax")
 
 from repro.core.flowsim import run_flowsim as jax_run_flowsim  # noqa: E402

@@ -21,6 +21,7 @@ from collections import Counter
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 jax = pytest.importorskip("jax")
 
 from repro.obs import registry as jreg  # noqa: E402

@@ -17,7 +17,8 @@ import sys
 
 import pytest
 
-pytest.importorskip("torch")
+# one torch thread: the suite's xdist workers share the host's cores
+pytest.importorskip("torch").set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
@@ -36,16 +37,6 @@ ARCHS = configs.list_archs()
 TOL = 1e-5
 DECODE_VS_FORWARD = 5e-3
 B, S, STEPS = 2, 16, 8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Small tensors: one intra-op thread is faster, and the suite's
-    workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(cfg, rng, B, S):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
@@ -32,16 +33,6 @@ from repro_torch.weights import params_to_numpy, tree_map  # noqa: E402
 
 TOL = 1e-5
 SSD_TOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Small tensors: one intra-op thread is faster, and the suite's
-    workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def gen(seed=0):

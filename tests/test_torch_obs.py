@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 pytest.importorskip("jax")
 
 from repro.obs import __main__ as jax_cli  # noqa: E402

@@ -11,7 +11,8 @@ import dataclasses
 
 import pytest
 
-pytest.importorskip("torch")
+# one torch thread: the suite's xdist workers share the host's cores
+pytest.importorskip("torch").set_num_threads(1)
 pytest.importorskip("jax")
 
 from repro.net import packetsim as jps  # noqa: E402

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 pytest.importorskip("jax")
 
 from repro.runtime import resilience as jres  # noqa: E402

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 jax = pytest.importorskip("jax")
 
 from repro.core import sharding as jsharding  # noqa: E402
@@ -94,16 +95,6 @@ for fam, counts in (("m4", M4), ("fs", FAST), ("train", TRAIN)):
         out[f"count_{fam}_{k}"] = np.array(v)
 np.savez(sys.argv[1], **out)
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Small tensors: one intra-op thread is faster, and the suite's
-    workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def two_devices(device):

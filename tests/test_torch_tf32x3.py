@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 
 from repro_torch.core.model import M4Config, init_m4  # noqa: E402
 from repro_torch.kernels.bipartite import ref as bip_ref  # noqa: E402

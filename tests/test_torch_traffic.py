@@ -5,7 +5,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+# one torch thread: the suite's xdist workers share the host's cores
+pytest.importorskip("torch").set_num_threads(1)
 pytest.importorskip("jax")
 
 from repro.data import traffic as jt  # noqa: E402

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the host's cores
 
 from repro_torch.core import flowsim_fast as tff  # noqa: E402
 from repro_torch.data.traffic import sample_scenario  # noqa: E402

@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 
 zstandard = pytest.importorskip("zstandard")
-pytest.importorskip("torch")
+# one torch thread: the suite's xdist workers share the host's cores
+pytest.importorskip("torch").set_num_threads(1)
 
 from repro_torch.runtime import blobstore  # noqa: E402
 from repro_torch.runtime.zstd import decompress, xxh64  # noqa: E402
