@@ -4,6 +4,13 @@ serving and training paths) on one NVIDIA card.
 
     python3 chip_smoke.py
 
+The CPU's side of the card-against-CPU checks of m4 and flowsim_fast
+(phases 6, 10 and 13) and the dry-run's cells (phase 16) runs in one
+spawned worker process from the start, beside the card's phases; the
+LM's CPU steps (phase 16) run in a thread from phase 13 on. Each phase
+collects its CPU result where it compares it, and phases 6 and 8 run
+after phase 9, by which time the worker has finished theirs.
+
 Phases, each printing one JSON line:
 
 1. card        — name and power limit (nvidia-smi);
@@ -119,7 +126,7 @@ Phases, each printing one JSON line:
                  specs of each chunk against the CPU, and a profile of one
                  B = 8 chunk (smoke16 at its own 30-58 flows); then `python -m
                  repro_torch.train` in-process at paper width (2 Table-2
-                 sims and 2 Table-3 eval specs of CLI_FLOWS = 500 flows,
+                 sims and 2 Table-3 eval specs of CLI_FLOWS = 250 flows,
                  one epoch), run twice: the first builds one training
                  program (its report's `compiles`), the second is a
                  finished resume with the same weights hash, no program,
@@ -220,8 +227,18 @@ Phases, each printing one JSON line:
                  examples/train_lm_torch.py --ci (60 steps, the loss
                  falls); the dry-run's `gemma2-9b train_4k 16x16` cell on
                  a fake process group (collectives by kind, FLOPs, wall)
-                 and its H100 roofline; no kernel of the port launched;
-17. files      — the port's file formats on this machine (no msgpack,
+                 and its H100 roofline, and the MoE cell `moonshot-v1-
+                 16b-a3b train_4k 16x16` (its MoE layer per shard; census
+                 by kind, op count, FLOPs per rank, wall); no kernel of
+                 the port launched;
+17. collectives — examples/simulate_collectives_torch.py's pipeline on
+                 that MoE record: per collective kind one ring pass of
+                 COLLECTIVE_RANKS = 16 flows through numpy flowSim and m4
+                 at full width with the train phase's fitted weights, the
+                 alpha-beta bound beside them; bytes and the three times
+                 per kind, all finite, m4's launches 2 GRU-pair and 1
+                 GNN per event;
+18. files      — the port's file formats on this machine (no msgpack,
                  zstandard or ml_dtypes): a tree with a torch.bfloat16
                  CUDA leaf through the checkpoint's save and restore,
                  bitwise, one tree_digest before and after; a bare
@@ -231,8 +248,9 @@ Phases, each printing one JSON line:
 Then the `kernels` line (each kernel's launches on the full-size `run`,
 on the probed `run`s, in the train phase's evaluation, in the sweeps, in
 the workers of the fleet phase's two clean fleets, in the serve phase's
-first round, in the fabric phase's two captured 2000-flow `run`s and in
-the sharded phase's two sharded `run_many`s),
+first round, in the fabric phase's two captured 2000-flow `run`s, in
+the sharded phase's two sharded `run_many`s and in the collectives
+phase),
 the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits nonzero and prints no result; so it does with no CUDA device, or
@@ -262,7 +280,8 @@ GNN_TOL = 1e-4
 FCT_RTOL = 1e-4
 TRAIN_FLOWS = 250      # flows of the train phase's sims (see phase_train)
 SWEEP_FLOWS = 200      # smoke16's base flow count in the sweep phase
-CLI_FLOWS = 500        # flows of the training CLI's sims (sweep phase)
+SWEEP_CPU_SPECS = [0, 5, 10, 15]  # ... its specs held against the CPU
+CLI_FLOWS = 250        # flows of the training CLI's sims (sweep phase)
 PROBE_STRIDE = 4       # probes phase: a sample every 4 events ...
 PROBE_SAMPLES = 256    # ... into a ring of 256, which wraps at 2000 flows
 PROBE_RTOL = 1e-5      # a batched series against its scenario's own run
@@ -286,6 +305,13 @@ LM_RESUME_D_MODEL = 128    # ... the resume at this width: at zamba2's own
                            # does not hold; tools/lm_train_phase.py runs it
 LM_RESUME_RTOL = 1e-5      # resumed losses (tests/test_runtime.py:82)
 LM_CPU_RTOL = 1e-4         # the card against the CPU, float32
+LM_CPU_CASES = (("zamba2-2.7b", LM_CUT_LAYERS, LM_SEQ),  # (arch, layers,
+                ("moonshot-v1-16b-a3b", 1, 64))         # seq): the card
+LM_CPU_SEED = 2            # against the CPU, 3 steps at B 1 from this seed
+M4_SEED = 0                # m4's weights of the inference phases
+CPU_SIDE_TIMEOUT_S = 900   # the longest a phase waits for a CPU result
+MOE_CELL = "moonshot-v1-16b-a3b"  # lm_train phase: the dry-run's MoE cell
+COLLECTIVE_RANKS = 16      # collectives phase: ranks of each ring pass
 # a worker-targeted fault fires only in a worker that claims a task, so
 # the kill targets both workers of the pool: the first to claim dies
 FLEET_CHAOS = ("kill:worker=0,after=1;kill:worker=1,after=1;"
@@ -729,6 +755,148 @@ def run_counted(torch, fn):
     return out, {k: f.launches for k, f in counters.items()}, wall
 
 
+# ---- the CPU's side of the card-against-CPU checks of m4 and flowsim_fast
+# and the dry-run's cells: one spawned worker process (no CUDA) runs them
+# from the script's start, beside the card's phases, and each phase
+# collects its result where it compares it. Their functions live at module
+# level: the worker imports this file as `__mp_main__`.
+def cpu_side_init():
+    """The worker's stdout is the script's stderr: what its libraries print
+    stays off the result lines. One torch thread: the simulators' CPU
+    operators are small, so more threads only wait on each other (and
+    give the same bits: flowsim_fast's link sums are exact), and the
+    worker leaves the other cores to the card's phases."""
+    import torch
+    sys.stdout = sys.stderr
+    torch.set_num_threads(1)
+
+
+def cpu_m4_run(cfg, req):
+    """m4 with init_m4(M4_SEED) on the CPU: (FCTs, probe series)."""
+    from repro_torch.core.model import init_m4
+    from repro_torch.sim import get_backend
+    res = get_backend("m4", params=init_m4(M4_SEED, cfg, device="cpu"),
+                      cfg=cfg, device="cpu").run(req)
+    return res.fcts, res.probes
+
+
+def cpu_fabric_runs(cfg, req):
+    """m4 (init_m4(M4_SEED)) and flowsim_fast on the CPU: {name: (FCTs,
+    wall)}."""
+    from repro_torch.core.model import init_m4
+    from repro_torch.sim import get_backend
+    out = {}
+    for name, kw in (("m4", dict(params=init_m4(M4_SEED, cfg, device="cpu"),
+                                 cfg=cfg)), ("flowsim_fast", {})):
+        backend = get_backend(name, device="cpu", **kw)
+        t0 = time.perf_counter()
+        fcts = backend.run(req).fcts
+        out[name] = (fcts, time.perf_counter() - t0)
+    return out
+
+
+def cpu_sweep_runs(cfg, reqs):
+    """m4 (init_m4(M4_SEED)) and flowsim_fast on the CPU through
+    `run_chunked` at chunk 8: {name: (results, wall)}."""
+    from repro_torch.core.model import init_m4
+    from repro_torch.sim import get_backend
+    out = {}
+    for name, kw in (("m4", dict(params=init_m4(M4_SEED, cfg, device="cpu"),
+                                 cfg=cfg)), ("flowsim_fast", {})):
+        backend = get_backend(name, device="cpu", **kw)
+        t0 = time.perf_counter()
+        res = backend.run_chunked(reqs, 8)
+        out[name] = ([r.fcts for r in res], time.perf_counter() - t0)
+    return out
+
+
+def fs_recorded(req, device, probes=None):
+    """flowsim_fast's event scan of `req` on `device`, recording every
+    event: (FCTs, the records (fid, kind, rounds, capped), wall, the
+    series of `probes` or None)."""
+    import numpy as np
+    from repro_torch.core import flowsim_fast as ff
+    from repro_torch.core.probes import (FLOWSIM_CHANNELS, buffers_numpy,
+                                         normalize_probes)
+    flows = list(req.flows)
+    packed = [ff._pack(req.topo, flows)]
+    arr = np.array([f.t_arrival for f in req.flows])
+    if probes is not None:
+        probes = normalize_probes(probes, FLOWSIM_CHANNELS)
+    t0 = time.perf_counter()
+    out = ff._event_scan_core(*ff._to_device(packed, device), record=True,
+                              probes=probes)
+    series = None
+    if probes is not None:
+        bufs = {k: v[0] for k, v in buffers_numpy(out[2]).items()}
+        series = ff._finalize_fs_series(
+            probes, bufs, req.topo, flows, num_flows=len(flows),
+            num_links=req.topo.num_links)
+    return (out[0].cpu().numpy()[0] - arr,
+            {k: v.cpu().numpy()[0] for k, v in out[1].items()},
+            time.perf_counter() - t0, series)
+
+
+def cpu_dryruns():
+    """The lm_train phase's dry-run cells on a fake process group:
+    gemma2-9b's and MOE_CELL's `train_4k 16x16` records and gemma2's
+    roofline."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import init_fake_group
+    init_fake_group()
+    try:
+        rec = dryrun.lower_cell("gemma2-9b", "train_4k", False,
+                                verbose=False)
+        roof = roofline.analyze_cell("gemma2-9b", "train_4k",
+                                     log=lambda *a: None)
+        moe_rec = dryrun.lower_cell(MOE_CELL, "train_4k", False,
+                                    verbose=False)
+    finally:
+        dist.destroy_process_group()
+    return rec, {k: roof[k] for k in (
+        "flops_dev", "bytes_dev", "coll_bytes_dev", "t_compute_s",
+        "t_memory_s", "t_collective_s", "dominant", "useful_ratio",
+        "roofline_fraction", "analysis_s")}, moe_rec
+
+
+def lm_cpu_cfg(torch, arch, layers):
+    from repro_torch import configs
+    return configs.get_config(arch).with_(num_layers=layers,
+                                          dtype=torch.float32)
+
+
+def lm_cpu_start(torch, dev):
+    """The LM's card-against-CPU check, its CPU side started early: for
+    each of LM_CPU_CASES the weights drawn on the card (LM_CPU_SEED; on
+    the host's cores the truncated-normal draw of moonshot's 1.24e9
+    parameters alone takes minutes) and copied to the host, and one
+    thread that runs the CPU steps beside the card's later phases (their
+    large operators leave the GIL free). Returns the executor and
+    {arch: future of (losses, wall)}."""
+    import concurrent.futures
+    from repro_torch.models import lm
+    from repro_torch.weights import params_to
+
+    def steps(c, p, seq):
+        t0 = time.perf_counter()
+        losses = lm_train_steps(torch, c, p, "cpu", 3, 1, seq)
+        return losses, time.perf_counter() - t0
+
+    # two cores stay with the card's phases
+    torch.set_num_threads(max(1, torch.get_num_threads() - 2))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    futures = {}
+    for arch, layers, seq in LM_CPU_CASES:
+        c = lm_cpu_cfg(torch, arch, layers)
+        p = params_to(lm.init_params(
+            torch.Generator(device=dev).manual_seed(LM_CPU_SEED), c), "cpu")
+        futures[arch] = pool.submit(steps, c, p, seq)
+        del p
+    torch.cuda.empty_cache()
+    return pool, futures
+
+
 class CountedJob:
     """A fleet job that runs `inner` (a `SweepJob`) and appends one JSON
     line per task it ran to `<out_dir>/<pid>.jsonl`: the kernel launches
@@ -934,38 +1102,17 @@ def compare_fcts(np, name, gpu, cpu, flows, **extra):
                              f"{FCT_RTOL}: flow {first}, rel {rel[first]}")
 
 
-def phase_cpu_flowsim_fast(torch, np, req, run_res, dev, probes):
+def phase_cpu_flowsim_fast(torch, np, req, run_res, dev, cpu_job):
     """flowsim_fast's `run` on the card against the CPU on the same
     scenario; both runs record every event (the card's counted: one
     water-filling launch per event), which gives the water-filling rounds
     per event and the first event whose records (fid, kind, rounds,
-    capped) differ, if any. The CPU's run also records `probes`, for the
-    probes phase; returns its series."""
-    from repro_torch.core import flowsim_fast as ff
-    from repro_torch.core.probes import (FLOWSIM_CHANNELS, buffers_numpy,
-                                         normalize_probes)
-    probes = normalize_probes(probes, FLOWSIM_CHANNELS)
-    flows = list(req.flows)
-    packed = [ff._pack(req.topo, flows)]
-    arr = np.array([f.t_arrival for f in req.flows])
-
-    def recorded(d, probes=None):
-        t0 = time.perf_counter()
-        out = ff._event_scan_core(*ff._to_device(packed, d), record=True,
-                                  probes=probes)
-        series = None
-        if probes is not None:
-            bufs = {k: v[0] for k, v in buffers_numpy(out[2]).items()}
-            series = ff._finalize_fs_series(
-                probes, bufs, req.topo, flows, num_flows=len(flows),
-                num_links=req.topo.num_links)
-        return (out[0].cpu().numpy()[0] - arr,
-                {k: v.cpu().numpy()[0] for k, v in out[1].items()},
-                time.perf_counter() - t0, series)
-
-    c_fct, c_log, c_wall, c_series = recorded("cpu", probes)
-    (g_fct, g_log, _, _), counts, _ = run_counted(torch,
-                                                  lambda: recorded(dev))
+    capped) differ, if any. The CPU's run (`cpu_job`, fs_recorded on the
+    CPU side) also recorded probes, for the probes phase; returns its
+    series."""
+    (g_fct, g_log, _, _), counts, _ = run_counted(
+        torch, lambda: fs_recorded(req, dev))
+    c_fct, c_log, c_wall, c_series = cpu_job.get(CPU_SIDE_TIMEOUT_S)
     events = 2 * req.num_flows
     if counts != launches(event=events):
         raise AssertionError(f"flowsim_fast recorded run: launches {counts}, "
@@ -984,7 +1131,7 @@ def phase_cpu_flowsim_fast(torch, np, req, run_res, dev, probes):
         rounds_max=int(rounds.max()),
         events_capped_share=float(capped.mean()),
         events_capped=int(capped.sum()), events=int(rounds.size),
-        cpu_probes=f"stride {probes.stride}, ring {probes.max_samples}")
+        cpu_probes=f"stride {PROBE_STRIDE}, ring {PROBE_SAMPLES}")
     return c_series
 
 
@@ -1292,7 +1439,8 @@ def check_update(torch, name, got, want, p0, lr):
 def phase_train(torch, np, cfg, dev, smi):
     """m4's training path on the card: DES -> EventBatch (build_dataset
     over scenario specs) -> fit (per sim, batch) -> checkpoints and resume
-    -> evaluate_m4 over a spec. Returns the evaluation's launch counts."""
+    -> evaluate_m4 over a spec. Returns the evaluation's launch counts and
+    the weights the per-sim fit trained."""
     import dataclasses
     import tempfile
     import contextlib
@@ -1577,23 +1725,22 @@ def phase_train(torch, np, cfg, dev, smi):
          m4_err_mean=report["m4_err_mean"],
          flowsim_err_mean=report["flowsim_err_mean"], wall_s=wall,
          launches=counts, card=smi)
-    return counts
+    return counts, trained
 
 
-def phase_sweep(torch, np, m4, fs, params, cfg, smi):
+def phase_sweep(torch, np, m4, fs, smi, cpu_job):
     """The sweep engine and the one-call pipeline on the card: smoke16
     (16 specs, four topologies and four workload families, 200-260
     flows) through SweepRunner at chunk 8 for m4 and flowsim_fast, with
     the launch counters, a cached re-run, and two specs of each chunk
-    against the CPU; then `python -m repro_torch.train` in-process at
-    paper width, twice (the second a finished resume). Returns the
-    sweeps' launch counts."""
+    against the CPU (`cpu_job`: cpu_sweep_runs of SWEEP_CPU_SPECS on the
+    CPU side); then `python -m repro_torch.train` in-process at paper
+    width, twice (the second a finished resume). Returns the sweeps'
+    launch counts."""
     import contextlib
     import tempfile
     from repro_torch.scenarios import SweepRunner, get_suite
-    from repro_torch.sim import get_backend
     from repro_torch.train.__main__ import main as train_main
-    from repro_torch.weights import params_to
 
     t_phase = time.perf_counter()
     sweep = get_suite("smoke16", num_flows=SWEEP_FLOWS)
@@ -1605,12 +1752,10 @@ def phase_sweep(torch, np, m4, fs, params, cfg, smi):
     scenario_events = sum(2 * r.num_flows for r in reqs)
     total = launches()
     with tempfile.TemporaryDirectory() as cache:
-        for name, backend, per_event, cpu in (
-                ("m4", m4, launches(2, 1), get_backend(
-                    "m4", params=params_to(params, "cpu"), cfg=cfg,
-                    device="cpu")),
-                ("flowsim_fast", fs, launches(event=1),
-                 get_backend("flowsim_fast", device="cpu"))):
+        cpu_runs = cpu_job.get(CPU_SIDE_TIMEOUT_S)
+        for name, backend, per_event in (
+                ("m4", m4, launches(2, 1)),
+                ("flowsim_fast", fs, launches(event=1))):
             runner = SweepRunner(backend, cache_dir=cache, chunk_size=8)
             rep, counts, wall = run_counted(torch, lambda: runner.run(sweep))
             want = {k: v * batched for k, v in per_event.items()}
@@ -1636,12 +1781,10 @@ def phase_sweep(torch, np, m4, fs, params, cfg, smi):
             # difference of two of its readings: completion times are held
             # at rtol 1e-4, FCTs at rtol 1e-4 up to one float32 ulp of the
             # completion time (which can exceed 1e-4 of a short FCT)
-            pick = [0, 5, 10, 15]
-            t0 = time.perf_counter()
-            ref = cpu.run_chunked([reqs[i] for i in pick], 8)
-            cpu_s = time.perf_counter() - t0
+            pick = SWEEP_CPU_SPECS
+            ref, cpu_s = cpu_runs[name]
             got = np.concatenate([rep.entries[i].result.fcts for i in pick])
-            want_f = np.concatenate([r.fcts for r in ref])
+            want_f = np.concatenate(ref)
             arr = np.concatenate([[f.t_arrival for f in reqs[i].flows]
                                   for i in pick])
             rel = np.abs(got - want_f) / np.abs(want_f)
@@ -2264,7 +2407,7 @@ def peak_run(torch, fn):
     return out, counts, wall, torch.cuda.max_memory_allocated() - base
 
 
-def phase_fabric(torch, np, m4, fs, params, cfg, dev, smi):
+def phase_fabric(torch, np, m4, fs, dev, smi, cpu_job):
     """m4 and flowsim_fast on the paper's §5.2 fabric (`meta_fabric()`:
     6144 hosts, 384 racks, 8 spines, 18432 links) at full width, through
     the backends' `run`: at FABRIC_FLOWS, captured (a capture, then a
@@ -2277,8 +2420,7 @@ def phase_fabric(torch, np, m4, fs, params, cfg, dev, smi):
     FABRIC_FLOWS `run`s."""
     from repro_torch.data.traffic import sample_scenario
     from repro_torch.net import meta_fabric
-    from repro_torch.sim import SimRequest, get_backend
-    from repro_torch.weights import params_to
+    from repro_torch.sim import SimRequest
 
     topo = meta_fabric()
     emit("fabric", step="topology", hosts=topo.num_hosts,
@@ -2360,18 +2502,13 @@ def phase_fabric(torch, np, m4, fs, params, cfg, dev, smi):
              rate_over_fabric_flows=(events / wall) / rates[name], **extra,
              card=smi)
 
-    # the card against the CPU
+    # the card against the CPU (cpu_job: cpu_fabric_runs on the CPU side)
     creq = req_of(5, FABRIC_CPU_FLOWS)
     arr = np.array([f.t_arrival for f in creq.flows])
-    cpu_m4 = get_backend("m4", params=params_to(params, "cpu"), cfg=cfg,
-                         device="cpu")
-    cpu_fs = get_backend("flowsim_fast", device="cpu")
-    for name, card, cpu in (("m4", m4, cpu_m4), ("flowsim_fast", fs,
-                                                  cpu_fs)):
+    cpu_runs = cpu_job.get(CPU_SIDE_TIMEOUT_S)
+    for name, card in (("m4", m4), ("flowsim_fast", fs)):
         got = card.run(creq).fcts
-        t0 = time.perf_counter()
-        want = cpu.run(creq).fcts
-        cpu_s = time.perf_counter() - t0
+        want, cpu_s = cpu_runs[name]
         rel = np.abs(got - want) / np.abs(want)
         ulp = np.spacing((arr + want).astype(np.float32)).astype(np.float64)
         if name == "flowsim_fast":
@@ -2776,7 +2913,8 @@ def lm_train_steps(torch, c, params, device, n, batch, seq):
     return losses
 
 
-def phase_lm_train(torch, np, dev, smi, resume_d_model=None):
+def phase_lm_train(torch, np, dev, smi, lm_cpu, dry_job,
+                   resume_d_model=None):
     """The LM's training and launch layer (`repro_torch.launch`, plain
     PyTorch: no TPU kernel, and none of the port's launches). zamba2-2.7b
     as published through `train` at the CLI's defaults, each step timed
@@ -2784,21 +2922,20 @@ def phase_lm_train(torch, np, dev, smi, resume_d_model=None):
     every step, so it synchronises anyway) with its leaf dtypes; at one
     shared-attention group the crash and resume (at width
     `resume_d_model`, default zamba2's own) and the compressed step; the
-    card against the CPU; the `--ci` example; one dry-run cell and its
-    roofline. It drops the compiled programs earlier phases cached, which
-    no later phase reads."""
+    card against the CPU (the CPU's steps from `lm_cpu`, lm_cpu_start's
+    futures); the `--ci` example; the dry-run's cells and gemma2's
+    roofline (`dry_job`, cpu_dryruns on the CPU side). It drops the
+    compiled programs earlier phases cached, which no later phase reads.
+    Returns the MoE cell's record."""
     import importlib.util
     import tempfile
 
-    import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.core import compiled
-    from repro_torch.launch import dryrun, roofline
     from repro_torch.launch import train as T
-    from repro_torch.launch.mesh import init_fake_group
     from repro_torch.models import lm
     from repro_torch.runtime import checkpoint as ckpt
-    from repro_torch.weights import params_to, tree_leaves
+    from repro_torch.weights import tree_leaves
 
     t_phase = time.perf_counter()
     counters = launch_counters()
@@ -2934,20 +3071,16 @@ def phase_lm_train(torch, np, dev, smi, resume_d_model=None):
     torch.backends.cudnn.allow_tf32 = False
     try:
         # moonshot at S 64: its CPU steps are led by 1.24e9 parameters'
-        # AdamW and its 163840-word vocabulary
-        for arch, layers, seq in (("zamba2-2.7b", LM_CUT_LAYERS, LM_SEQ),
-                                  ("moonshot-v1-16b-a3b", 1, 64)):
-            c = configs.get_config(arch).with_(num_layers=layers,
-                                               dtype=torch.float32)
-            p = lm.init_params(torch.Generator(device=dev).manual_seed(2), c)
-            p_cpu = params_to(p, "cpu")
+        # AdamW and its 163840-word vocabulary; they ran in lm_cpu's
+        # thread, from the same draw
+        for arch, layers, seq in LM_CPU_CASES:
+            c = lm_cpu_cfg(torch, arch, layers)
+            p = lm.init_params(
+                torch.Generator(device=dev).manual_seed(LM_CPU_SEED), c)
             card = lm_train_steps(torch, c, p, dev, 3, 1, seq)
             del p
             torch.cuda.empty_cache()
-            t0 = time.perf_counter()
-            cpu = lm_train_steps(torch, c, p_cpu, "cpu", 3, 1, seq)
-            cpu_s = time.perf_counter() - t0
-            del p_cpu
+            cpu, cpu_s = lm_cpu[arch].result(timeout=CPU_SIDE_TIMEOUT_S)
             gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
             emit("lm_train", step="cpu", arch=arch, layers=layers,
                  d_model=c.d_model, global_batch=1, seq=seq,
@@ -2976,25 +3109,27 @@ def phase_lm_train(torch, np, dev, smi, resume_d_model=None):
     if not ex[-1] < ex[0]:
         raise AssertionError(f"lm_train example: loss {ex[0]} -> {ex[-1]}")
 
-    # ---- the dry-run's cell and its roofline, on a fake process group
-    init_fake_group()
-    try:
-        rec = dryrun.lower_cell("gemma2-9b", "train_4k", False,
-                                verbose=False)
-        roof = roofline.analyze_cell("gemma2-9b", "train_4k", log=quiet)
-    finally:
-        dist.destroy_process_group()
+    # ---- the dry-run's cells and gemma2's roofline, on a fake process
+    # group (dry_job: cpu_dryruns on the CPU side): a dense cell and an
+    # MoE cell (its layer per shard)
+    rec, roof, moe_rec = dry_job.get(CPU_SIDE_TIMEOUT_S)
     emit("lm_train", step="dryrun", cell="gemma2-9b train_4k 16x16",
          collective_kinds=rec["collective_kinds"],
          collective_ops=rec["collective_ops"],
          collective_bytes=rec["collective_bytes"], flops=rec["flops"],
-         wall_s=rec["lower_s"], roofline={k: roof[k] for k in (
-             "flops_dev", "bytes_dev", "coll_bytes_dev", "t_compute_s",
-             "t_memory_s", "t_collective_s", "dominant", "useful_ratio",
-             "roofline_fraction", "analysis_s")},
+         wall_s=rec["lower_s"], roofline=roof,
          torch=torch.__version__, card=smi)
     if not rec["collective_ops"] or not rec["flops"]:
         raise AssertionError(f"lm_train dryrun: empty census {rec}")
+    emit("lm_train", step="dryrun", cell=f"{MOE_CELL} train_4k 16x16",
+         collective_kinds=moe_rec["collective_kinds"],
+         collective_ops=moe_rec["collective_ops"],
+         collective_bytes=moe_rec["collective_bytes"],
+         flops=moe_rec["flops"], wall_s=moe_rec["lower_s"],
+         torch=torch.__version__, card=smi)
+    if not (moe_rec["collective_ops"] and moe_rec["collective_kinds"]
+            and moe_rec["flops"]):
+        raise AssertionError(f"lm_train dryrun: empty census {moe_rec}")
 
     counts = {k: f.launches for k, f in counters.items()}
     if counts != launches():
@@ -3002,22 +3137,93 @@ def phase_lm_train(torch, np, dev, smi, resume_d_model=None):
                              f"{counts}")
     emit("lm_train", step="phase", seconds=time.perf_counter() - t_phase,
          launches=counts, card=smi)
+    return moe_rec
+
+
+def phase_collectives(torch, np, rec, params, cfg, dev, smi):
+    """examples/simulate_collectives_torch.py's pipeline on the card: the
+    dry-run record `rec` (the lm_train phase's MoE cell) as one ring pass
+    of COLLECTIVE_RANKS flows per collective kind, through numpy flowSim
+    and m4 at full width with the train phase's fitted weights; the
+    alpha-beta bound beside them. Every time finite and positive, and m4
+    launching 2 GRU-pair and 1 GNN per event (2 events per flow). Returns
+    the launch counts."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "simulate_collectives_torch",
+        os.path.join(ROOT, "examples", "simulate_collectives_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    rows, counts, wall = run_counted(torch, lambda: example.collective_times(
+        rec, COLLECTIVE_RANKS, params, cfg, device=dev))
+    events = 2 * COLLECTIVE_RANKS * len(rows)
+    for kind, nbytes, t_ab, t_fs, t_m4 in rows:
+        emit("collectives", cell=f"{rec['arch']} {rec['shape']} "
+             f"{rec['mesh']}", kind=kind, bytes_dev=nbytes,
+             ranks=COLLECTIVE_RANKS, t_alpha_beta_s=t_ab,
+             t_flowsim_s=float(t_fs), t_m4_s=float(t_m4), card=smi)
+        if not all(np.isfinite(t) and t > 0 for t in (t_ab, t_fs, t_m4)):
+            raise AssertionError(f"collectives {kind}: times {t_ab}, "
+                                 f"{t_fs}, {t_m4}")
+    want = launches(2 * events, events)
+    emit("collectives", step="phase", kinds=len(rows), events=events,
+         wall_s=wall, launches=counts, card=smi)
+    if not rows or counts != want:
+        raise AssertionError(f"collectives: {len(rows)} kinds, launches "
+                             f"{counts}, expected {want}")
+    return counts
 
 
 def main() -> int:
+    import multiprocessing
+
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import repro_torch  # noqa: F401  (no worker starts without the port)
+
+    cpu_side = multiprocessing.get_context("spawn").Pool(
+        1, initializer=cpu_side_init)
+    try:
+        return smoke(torch, np, cpu_side)
+    finally:
+        cpu_side.terminate()
+        cpu_side.join()
+
+
+def smoke(torch, np, cpu_side):
+    """Every phase in order, the CPU side's jobs handed to `cpu_side` (a
+    one-worker pool) first; returns the exit code."""
     import dataclasses
     from repro_torch.core.model import M4Config, init_m4
     from repro_torch.core.probes import ProbeConfig
     from repro_torch.data.traffic import sample_scenario
     from repro_torch.kernels import build
     from repro_torch.net import meta_fabric
+    from repro_torch.scenarios import get_suite
     from repro_torch.sim import SimRequest, get_backend
-    from repro_torch.weights import params_to
+
+    def req_of(seed, **kw):
+        return SimRequest.from_scenario(sample_scenario(seed, **kw))
+
+    # the CPU side's jobs, in the order the phases collect them
+    cfg = M4Config()
+    fs_req = req_of(1)          # the seed where the 32-round cap binds
+    probes = ProbeConfig(stride=PROBE_STRIDE, max_samples=PROBE_SAMPLES)
+    creq = req_of(5, num_flows=200)
+    m4_cpu_job = cpu_side.apply_async(cpu_m4_run, (
+        cfg, dataclasses.replace(creq, probes=probes)))
+    fs_cpu_job = cpu_side.apply_async(fs_recorded, (fs_req, "cpu", probes))
+    sweep_reqs = [spec.to_request() for spec in
+                  get_suite("smoke16", num_flows=SWEEP_FLOWS)]
+    sweep_cpu_job = cpu_side.apply_async(cpu_sweep_runs, (
+        cfg, [sweep_reqs[i] for i in SWEEP_CPU_SPECS]))
+    fabric_cpu_job = cpu_side.apply_async(cpu_fabric_runs, (
+        cfg, req_of(5, num_flows=FABRIC_CPU_FLOWS, topo=meta_fabric())))
+    dry_job = cpu_side.apply_async(cpu_dryruns)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3039,14 +3245,9 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          dir=os.path.relpath(build.build_dir(), ROOT), ptxas=logs)
 
-    def req_of(seed, **kw):
-        return SimRequest.from_scenario(sample_scenario(seed, **kw))
-
     dev = torch.device("cuda")
-    cfg = M4Config()
-    params = init_m4(0, cfg, device=dev)
+    params = init_m4(M4_SEED, cfg, device=dev)
     entries = phase_kernels(torch, params, cfg, dev)
-    fs_req = req_of(1)          # the seed where the 32-round cap binds
     entries["masked_rowmin"] = phase_rowmin(
         torch, dev, (1, fs_req.num_flows, fs_req.topo.num_links))
     entries["waterfill_event"] = phase_event(
@@ -3075,39 +3276,43 @@ def main() -> int:
     phase_profile(torch, "m4", m4, req_of(3, num_flows=100), smi)
     phase_profile(torch, "flowsim_fast", fs, fs_req, smi, fs_rate)
 
+    phase_closed_loop(torch, np, m4, fs, cfg, smi)
+
+    # ---- the train phase first: meanwhile the CPU side finishes the runs
+    # the next two phases compare with
+    t0 = time.perf_counter()
+    eval_launches, trained = phase_train(torch, np, cfg, dev, smi)
+    emit("train", step="phase", seconds=time.perf_counter() - t0)
+
     # ---- the card against the CPU; the CPU's runs also record probes,
     # which the probes phase holds the card's probed runs against
-    probes = ProbeConfig(stride=PROBE_STRIDE, max_samples=PROBE_SAMPLES)
-    creq = req_of(5, num_flows=200)
     gpu = m4.run(creq)
-    cpu = get_backend("m4", params=params_to(params, "cpu"), cfg=cfg,
-                      device="cpu").run(dataclasses.replace(creq,
-                                                            probes=probes))
-    compare_fcts(np, "m4", gpu.fcts, cpu.fcts, creq.num_flows)
+    cpu_fcts, m4_cpu_series = m4_cpu_job.get(CPU_SIDE_TIMEOUT_S)
+    compare_fcts(np, "m4", gpu.fcts, cpu_fcts, creq.num_flows)
     fs_cpu_series = phase_cpu_flowsim_fast(torch, np, fs_req, fs_res, dev,
-                                           probes)
-
-    phase_closed_loop(torch, np, m4, fs, cfg, smi)
+                                           fs_cpu_job)
 
     probes_launches = phase_probes(torch, np, m4, fs, {
         "m4_req": m4_req, "m4_res": m4_res, "m4_rate": m4_rate,
         "m4_many": [req_of(s, num_flows=n) for s, n in
                     ((1, 200), (2, 300), (3, 400), (4, 500))],
         "fs_req": fs_req, "fs_res": fs_res, "fs_rate": fs_rate,
-        "cpu_req": creq, "m4_cpu_series": cpu.probes,
+        "cpu_req": creq, "m4_cpu_series": m4_cpu_series,
         "fs_cpu_series": fs_cpu_series}, smi)
 
-    t0 = time.perf_counter()
-    eval_launches = phase_train(torch, np, cfg, dev, smi)
-    emit("train", step="phase", seconds=time.perf_counter() - t0)
-
-    sweep_launches = phase_sweep(torch, np, m4, fs, params, cfg, smi)
+    sweep_launches = phase_sweep(torch, np, m4, fs, smi, sweep_cpu_job)
     fleet_launches = phase_fleet(torch, np, m4, fs, smi)
     serve_launches = phase_serve(torch, np, params, cfg, smi)
-    fabric_launches = phase_fabric(torch, np, m4, fs, params, cfg, dev, smi)
+    lm_threads, lm_cpu = lm_cpu_start(torch, dev)
+    fabric_launches = phase_fabric(torch, np, m4, fs, dev, smi,
+                                   fabric_cpu_job)
     sharded_launches = phase_sharded(torch, np, m4, fs, cfg, dev, smi)
     phase_lm(torch, np, dev, smi)
-    phase_lm_train(torch, np, dev, smi, LM_RESUME_D_MODEL)
+    moe_rec = phase_lm_train(torch, np, dev, smi, lm_cpu, dry_job,
+                             LM_RESUME_D_MODEL)
+    lm_threads.shutdown()
+    collectives_launches = phase_collectives(torch, np, moe_rec, trained,
+                                             cfg, dev, smi)
     phase_files(torch, np, dev)
 
     sources = {"fused_gru_pair": ("src/repro_torch/kernels/csrc/fused_gru.cu",
@@ -3129,7 +3334,9 @@ def main() -> int:
                      "fleet_launches": fleet_launches[name],
                      "serve_launches": serve_launches[name],
                      "fabric_launches": fabric_launches[name],
-                     "sharded_launches": sharded_launches[name], **e})
+                     "sharded_launches": sharded_launches[name],
+                     "collectives_launches": collectives_launches[name],
+                     **e})
     emit("total", seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

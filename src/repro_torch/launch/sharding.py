@@ -21,12 +21,14 @@ mesh dimension.
 
 All the model's layers know of a mesh (the dry-run's DTensors) is in
 the last four functions, the identity or a plain call on plain tensors:
-`activation` (JAX's layout of an activation), `whole_heads`, `head_split`
+`activation` (JAX's layout of an activation), `whole_heads`, `head_parts`
 and `per_shard` (JAX's `shard_map`, by `local_map`), which runs a
 computation independent per batch row and head on each rank's shards
 where DTensor cannot shard it itself.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -205,15 +207,20 @@ def whole_heads(t, heads):
     return t if keep == list(t.placements) else t.redistribute(mesh, keep)
 
 
-def head_split(t):
-    """(this rank's index, the number of parts) of `per_shard`'s split of
-    heads for tensors on `t`'s mesh: the `model` axis; (0, 1) for a plain
-    tensor."""
+def head_parts(t):
+    """The number of parts `per_shard` may split heads into for tensors on
+    `t`'s mesh: the size of its `model` axis; 1 for a plain tensor."""
     mesh = t.device_mesh if isinstance(t, DTensor) else None
     if mesh is None or "model" not in mesh.mesh_dim_names:
-        return 0, 1
-    i = mesh.mesh_dim_names.index("model")
-    return mesh.get_local_rank(i), mesh.size(i)
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index("model"))
+
+
+# `per_shard` result markers: a result that is the sum of the heads' parts
+# (its head entry), or the mean over the batch of each row's value (the
+# whole entry)
+SUM = "sum"
+MEAN = "mean"
 
 
 def per_shard(fn, args, dims, outs, *, heads=None, over=()):
@@ -224,29 +231,51 @@ def per_shard(fn, args, dims, outs, *, heads=None, over=()):
     the same for each result. The batch goes over the data axes (over the
     axes `over` alone, where given) where their sizes divide it, as
     `batch_spec` splits it, the heads over `model` where `heads` is given,
-    no `over` is, and the axis's size divides it. An argument is
+    no `over` is, and the axis's size divides it. With `heads`, `fn` takes
+    the keyword `h0`: the index of the first of the heads it is handed (0
+    for plain tensors and where the heads stay whole). An argument is
     replicated on an axis that splits the work but not the argument (one
     shared by all heads, or by all rows), and its gradient is summed there
-    (Partial)."""
+    (Partial).
+
+    Two results reduce across ranks. A head entry `SUM` is a result that
+    sums over the heads: each rank's sum over its own heads, left a
+    partial sum (Partial) on `model` for the caller's next layout to
+    reduce. An entry `MEAN` is a mean over the batch rows: each rank's
+    mean over its own rows, scaled by its share of the rows and summed
+    over the axes that split them, so the result is the global mean,
+    replicated, and each rank's gradient is its share of the global
+    one (`fn` then returns a tuple)."""
     mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
                 None)
     if mesh is None:
-        return fn(*args)
+        return fn(*args) if heads is None else fn(*args, h0=0)
     names = mesh.mesh_dim_names
     parts = 1
     for i, name in enumerate(names):
         parts *= mesh.size(i) if _split_by(name, over) else 1
     split_batch = all(a.shape[d[0]] % parts == 0 for a, d in zip(args, dims)
                       if d[0] is not None)
-    split_heads = (heads is not None and not over and "model" in names
-                   and heads % mesh.size(names.index("model")) == 0)
+    model = names.index("model") if "model" in names else None
+    split_heads = (heads is not None and not over and model is not None
+                   and heads % mesh.size(model) == 0)
+    if heads is not None:
+        fn = functools.partial(fn, h0=mesh.get_local_rank(model)
+                               * (heads // mesh.size(model))
+                               if split_heads else 0)
 
     def layout(d, grad=False):
+        if d == MEAN:
+            return tuple(Partial() if _split_by(name, over) and split_batch
+                         else Replicate() for name in names)
         batch, head = d
         out = []
         for name in names:
             if _split_by(name, over):
                 dim, splits = (batch, True) if split_batch else (None, False)
+            elif name == "model" and split_heads and head == SUM:
+                out.append(Partial())
+                continue
             elif name == "model" and split_heads:
                 dim, splits = head, True
             else:
@@ -255,15 +284,24 @@ def per_shard(fn, args, dims, outs, *, heads=None, over=()):
                        Partial() if grad and splits else Replicate())
         return tuple(out)
 
-    def local(*args):
-        return fn(*(_ContiguousGrad.apply(a) if a.is_floating_point() else a
-                    for a in args))
+    share = 1.0 / parts if split_batch else 1.0
 
-    return local_map(
+    def local(*args):
+        res = fn(*(_ContiguousGrad.apply(a) if a.is_floating_point() else a
+                   for a in args))
+        if MEAN not in outs or share == 1.0:
+            return res
+        return tuple(r * share if d == MEAN else r for r, d in zip(res, outs))
+
+    res = local_map(
         local, out_placements=tuple(layout(d) for d in outs),
         in_placements=tuple(layout(d) for d in dims),
         in_grad_placements=tuple(layout(d, grad=True) for d in dims),
         device_mesh=mesh, redistribute_inputs=True)(*args)
+    if MEAN not in outs:
+        return res
+    return tuple(r.redistribute(mesh, [Replicate()] * len(names))
+                 if d == MEAN else r for r, d in zip(res, outs))
 
 
 class _ContiguousGrad(torch.autograd.Function):

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..launch.sharding import activation
+from ..launch.sharding import SUM, activation, per_shard
 from ..nn import (AttnCfg, MoECfg, SSMCfg, attn_decode, attn_forward,
                   attn_init, embedding, embedding_init, lecun_normal, linear,
                   linear_init, moe_forward, moe_init, rmsnorm, rmsnorm_init,
@@ -293,16 +293,26 @@ def prefill_step(params, cfg: ArchCfg, batch, *, unroll=False):
 def _sharded_nll(logits, labels):
     """The JAX package's vocab-shard-local cross-entropy: every reduction
     over the vocab axis gives (B, S)-sized results; `lmax` cancels in the
-    nll and carries no gradient."""
+    nll and carries no gradient. On DTensors each rank reduces its own
+    slice of the vocab (`per_shard`, the vocab in the role of heads on
+    `model`), and the two sums are summed over `model` before the log:
+    DTensor left to itself shards the logits' gradient along the tokens
+    on a 2x16x16 mesh, which the lm head's weight gradient cannot take."""
     V = logits.shape[-1]
     lmax = logits.detach().amax(-1, keepdim=True)
-    shifted = (logits - lmax).float()
-    lse = torch.log(torch.exp(shifted).sum(-1))
-    sel = torch.arange(V, dtype=torch.int32,
-                       device=logits.device)[None, None, :] \
-        == labels[..., None]
-    label_logit = torch.where(sel, shifted, 0.0).sum(-1)
-    return lse - label_logit
+
+    def sums(logits, lmax, labels, h0):
+        shifted = (logits - lmax).float()
+        sel = torch.arange(h0, h0 + logits.shape[-1], dtype=torch.int32,
+                           device=logits.device)[None, None, :] \
+            == labels[..., None]
+        return (torch.exp(shifted).sum(-1),
+                torch.where(sel, shifted, 0.0).sum(-1))
+
+    sumexp, label_logit = per_shard(
+        sums, (logits, lmax, labels), ((0, 2), (0, None), (0, None)),
+        ((0, SUM), (0, SUM)), heads=V)
+    return torch.log(sumexp) - label_logit
 
 
 def loss_fn(params, cfg: ArchCfg, batch, *, unroll=False):

@@ -126,18 +126,18 @@ def _attend(cfg: AttnCfg, q, k, v, mask):
     n them; in the latter case each rank's q heads share one kv head, its
     slice of the replicated k and v."""
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
-    rank, n = sharding.head_split(q)
+    n = sharding.head_parts(q)
     split = (not cfg.batch_axes and H % n == 0
              and (Hkv % n == 0 or n % Hkv == 0))
     if not split:
-        rank, n = 0, 1
+        n = 1
     shared = Hkv % n != 0
     local = cfg._replace(num_heads=H // n,
                          num_kv_heads=1 if shared else Hkv // n)
-    kv = rank * (H // n) // (H // Hkv)
 
-    def attend(q, k, v, mask):
+    def attend(q, k, v, mask, h0=0):
         if shared:
+            kv = h0 // (H // Hkv)
             k, v = k[:, :, kv:kv + 1], v[:, :, kv:kv + 1]
         return _sdpa(local, q, k, v, mask)
 

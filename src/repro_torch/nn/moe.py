@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..launch import sharding
 from .layers import einsum, lecun_normal, linear, linear_init
 
 
@@ -65,23 +66,22 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _one_hot(x: torch.Tensor, n: int) -> torch.Tensor:
-    """`jax.nn.one_hot` in float32: a value outside [0, n) (a token past
-    capacity) gives a row of zeros."""
-    return (x[..., None] == torch.arange(n, device=x.device)).float()
+def _one_hot(x: torch.Tensor, n: int, start: int = 0) -> torch.Tensor:
+    """`jax.nn.one_hot` in float32 over the classes [start, start + n): a
+    value outside them (a token past capacity) gives a row of zeros."""
+    return (x[..., None] == torch.arange(start, start + n,
+                                         device=x.device)).float()
 
 
-def moe_forward(p, cfg: MoECfg, x):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss)."""
-    B, S, D = x.shape
-    N = B * S
-    G = cfg.group_size if N % cfg.group_size == 0 else N
-    ng = N // G
+def _route(cfg: MoECfg, w, xt):
+    """The router on groups xt (ng, G, D): each token's top-k weights
+    (renormalised) and experts, (ng, G, K), the slot of each choice in its
+    expert's buffer in GShard priority (ng, G, K), and the Switch loss's
+    two means over the groups and tokens, (E,) each: the router's
+    probabilities and the share of choices routed to each expert."""
+    ng, G, _ = xt.shape
     E, K = cfg.num_experts, cfg.top_k
-    C = _capacity(cfg, G)
-    xt = x.reshape(ng, G, D)
-
-    logits = linear(p["router"], xt).float()                  # (ng, G, E)
+    logits = linear({"w": w}, xt).float()                     # (ng, G, E)
     probs = torch.softmax(logits, dim=-1)
     topv, topi = top_k(probs, K)                              # (ng, G, K)
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
@@ -93,23 +93,65 @@ def moe_forward(p, cfg: MoECfg, x):
     pos = torch.cumsum(flat, dim=1) * flat - 1.0              # (ng,K*G,E)
     pos = pos.reshape(ng, K, G, E).permute(0, 2, 1, 3)        # (ng,G,K,E)
     pos_k = (pos * onehot).sum(-1)                            # (ng, G, K)
-    in_cap = (pos_k < C) & (pos_k >= 0)
 
-    disp = torch.zeros(ng, G, E, C, dtype=x.dtype, device=x.device)
-    comb = torch.zeros(ng, G, E, C, dtype=torch.float32, device=x.device)
-    for k in range(K):
+    me = probs.mean((0, 1))                                   # (E,)
+    ce = onehot.sum(2).mean((0, 1))                           # routed share
+    return topv, topi, pos_k, me, ce
+
+
+def _experts(C: int, e0: int, topv, topi, pos_k, xt, wg, wu, wd):
+    """Dispatch xt (ng, G, D) into the buffers of experts e0, e0 + 1, ...
+    (as many as `wg` holds), run their FFNs (SwiGLU) and combine: (ng, G,
+    D), summed over those experts. Dispatch and combine are dense one-hots
+    (ng, G, E, C) built per k-th choice."""
+    ng, G, _ = xt.shape
+    E = wg.shape[0]
+    onehot = _one_hot(topi, E, e0)                            # (ng,G,K,E)
+    in_cap = (pos_k < C) & (pos_k >= 0)
+    disp = torch.zeros(ng, G, E, C, dtype=xt.dtype, device=xt.device)
+    comb = torch.zeros(ng, G, E, C, dtype=torch.float32, device=xt.device)
+    for k in range(topi.shape[-1]):
         oc = _one_hot(pos_k[..., k], C) * in_cap[..., k:k + 1]   # (ng,G,C)
         d_k = einsum("age,agc->agec", onehot[:, :, k], oc)
-        disp = disp + d_k.to(x.dtype)
+        disp = disp + d_k.to(xt.dtype)
         comb = comb + d_k * topv[..., k][..., None, None]
 
     # route into per-expert buffers and run the expert FFNs
     buf = einsum("agec,agd->aecd", disp, xt)                  # (ng,E,C,D)
-    g = einsum("aecd,edf->aecf", buf, p["wg"].to(x.dtype))
-    u = einsum("aecd,edf->aecf", buf, p["wu"].to(x.dtype))
+    g = einsum("aecd,edf->aecf", buf, wg.to(xt.dtype))
+    u = einsum("aecd,edf->aecf", buf, wu.to(xt.dtype))
     h = F.silu(g) * u
-    eout = einsum("aecf,efd->aecd", h, p["wd"].to(x.dtype))
-    out = einsum("agec,aecd->agd", comb.to(x.dtype), eout)
+    eout = einsum("aecf,efd->aecd", h, wd.to(xt.dtype))
+    return einsum("agec,aecd->agd", comb.to(xt.dtype), eout)
+
+
+def moe_forward(p, cfg: MoECfg, x):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss).
+
+    On DTensors (`sharding.per_shard`) the routing runs on each rank's
+    groups, split over the data axes (one group, as at decode, stays
+    whole) and the same on every `model` rank; the experts run as heads
+    on `model`: each rank builds the dispatch and combine of its own
+    experts from the routing's choices and slots, runs them and combines,
+    and the output is a partial sum over `model` that the caller's
+    `activation` reduces. The dense (ng, G, E, C) one-hots never cross
+    ranks. The aux loss is formed from the two means over all groups."""
+    B, S, D = x.shape
+    N = B * S
+    G = cfg.group_size if N % cfg.group_size == 0 else N
+    ng = N // G
+    E = cfg.num_experts
+    C = _capacity(cfg, G)
+    xt = x.reshape(ng, G, D)
+
+    topv, topi, pos_k, me, ce = sharding.per_shard(
+        lambda w, xt: _route(cfg, w, xt), (p["router"]["w"], xt),
+        ((None, None), (0, None)),
+        ((0, None),) * 3 + (sharding.MEAN, sharding.MEAN))
+    out = sharding.per_shard(
+        lambda *a, h0: _experts(C, h0, *a),
+        (topv, topi, pos_k, xt, p["wg"], p["wu"], p["wd"]),
+        ((0, None),) * 4 + ((None, 0),) * 3, ((0, sharding.SUM),), heads=E)
 
     if cfg.shared_d_ff:
         sp = p["shared"]
@@ -117,7 +159,5 @@ def moe_forward(p, cfg: MoECfg, x):
         out = out + sh @ sp["wd"].to(x.dtype)
 
     # Switch-style load-balancing aux loss
-    me = probs.mean((0, 1))                                   # (E,)
-    ce = onehot.sum(2).mean((0, 1))                           # routed share
     aux = E * torch.sum(me * ce) / cfg.top_k
     return out.reshape(B, S, D), aux

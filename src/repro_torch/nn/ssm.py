@@ -114,7 +114,7 @@ def _ssd(xh, dtA, Bm, Cm, chunk: int):
     which flatten batch and heads into one dimension); B and C, one group
     shared by the heads, come whole to each rank."""
     return sharding.per_shard(
-        lambda xh, dtA, Bm, Cm: _ssd_chunked(xh, dtA, Bm, Cm, chunk),
+        lambda xh, dtA, Bm, Cm, h0: _ssd_chunked(xh, dtA, Bm, Cm, chunk),
         (xh, dtA, Bm, Cm), ((0, 2), (0, 2), (0, None), (0, None)),
         ((0, 2), (0, 1)), heads=xh.shape[2])
 

@@ -16,57 +16,19 @@ delay finite, nothing failed), and a clean drain — exit 0 iff all hold.
 `--ckpt-dir` (default results/m4_ckpt, the JAX package's format, which
 `python -m repro.train`, the JAX benchmarks and `python -m
 repro_torch.train` all write), at the benchmark's width. Where none is
-there it trains one first with `train_suite`, on the benchmark's corpus
-and training settings (the port's copy of `benchmarks/common.py`'s
-`BENCH_M4`, `BENCH_TC` and `train_suite_spec`), with one dataset worker.
+there it trains one first (`repro_torch.train.recipe.trained_m4`: the
+port's copy of `benchmarks/common.py`'s recipe).
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import sys
 import tempfile
 import threading
 
-# benchmarks/common.py: BENCH_M4's widths, the corpus of train_suite_spec
-# (N_TRAIN_SIMS sims of FLOWS_PER_SIM flows of table2_train_space,
-# synthetic) and BENCH_TC, copied so that the port imports nothing of it
-BENCH_M4 = dict(hidden=96, gnn_dim=64, mlp_hidden=64, snap_flows=16,
-                snap_links=48)
-N_TRAIN_SIMS = 12
-FLOWS_PER_SIM = 150
-BENCH_TC = dict(epochs=10, lr=1e-3, schedule="const", step_mode="per_sim",
-                shuffle=False)
-
-
-def train_suite_spec(n: int = N_TRAIN_SIMS):
-    """The benchmark training corpus (`benchmarks.common.train_suite_spec`)."""
-    from ..scenarios import get_suite
-    return get_suite("table2_train_space", n=n, num_flows=FLOWS_PER_SIM,
-                     synthetic=True)
-
-
-def trained_m4(ckpt_dir: str, data_dir: str, device, log=print):
-    """The benchmark model from `ckpt_dir`, trained there first when no
-    finished checkpoint is found. Returns (params, cfg)."""
-    from ..core.model import M4Config
-    from ..train import TrainConfig, load_state, train_suite
-    cfg = M4Config(**BENCH_M4)
-    tc = TrainConfig(**BENCH_TC)
-    state, done = load_state(ckpt_dir, cfg, device=device)
-    if state is not None and done >= tc.epochs:
-        log(f"[serve] m4 weights {state.weights_hash()[:12]} from "
-            f"{ckpt_dir} (epoch {done})")
-        return state.params, cfg
-    log(f"[serve] no finished m4 checkpoint in {ckpt_dir}: training the "
-        "benchmark model")
-    state, _ = train_suite(train_suite_spec(), cfg,
-                           dataclasses.replace(tc, ckpt_dir=ckpt_dir),
-                           data_root=data_dir, workers=1, device=device,
-                           log=log)
-    return state.params, cfg
+from ..train.recipe import trained_m4
 
 
 def _build_backend(name: str, args, log=print):

@@ -1,6 +1,8 @@
-"""Import hygiene of the PyTorch port: `repro_torch` and `chip_smoke.py`
-import neither `jax` nor anything of the JAX package `repro`, nor
-`msgpack` or `zstandard`, which the machine with the card lacks (the
+"""Import hygiene of the PyTorch port: `repro_torch`, `chip_smoke.py` and
+the port's examples (`examples/*_torch.py`, scanned as source) import
+neither `jax` nor anything of the JAX package `repro` or of
+`benchmarks/`, nor `msgpack` or `zstandard`, which the machine with the
+card lacks (the
 port's checkpoints and blob store use its own codec, zlib and its own
 zstd decoder). The sweep engine, the training pipeline, the probes, the
 obs layer with its divergence observatory, the compiled event loops,
@@ -11,6 +13,7 @@ CLIs' modules are among those imported; none pulls in `ml_dtypes` either (the ch
 bfloat16 leaves without it). That a spawned fleet worker
 imports neither is checked in tests/test_torch_fleet_spawn.py."""
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -73,7 +76,7 @@ MODULES = ["repro_torch", "repro_torch.sim", "repro_torch.sim.closedloop",
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "repro", "msgpack", "zstandard",
-                   "ml_dtypes")
+                   "ml_dtypes", "benchmarks")
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -89,7 +92,10 @@ def test_import_pulls_in_no_jax_and_no_repro():
 
 
 def _port_sources():
+    """The port, chip_smoke.py and the port's examples (examples/*_torch.py,
+    their shared trained_m4_torch.py among them)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += glob.glob(os.path.join(REPO, "examples", "*_torch.py"))
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -99,6 +105,10 @@ def test_ast_scan_finds_no_jax_or_repro_import():
     bad = []
     files = _port_sources()
     assert len(files) > 10
+    assert {os.path.basename(f) for f in files} >= {
+        "quickstart_torch.py", "closed_loop_torch.py",
+        "simulate_collectives_torch.py", "trained_m4_torch.py",
+        "train_lm_torch.py"}
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

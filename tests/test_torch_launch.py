@@ -28,7 +28,6 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # xdist workers share the host's cores
 jax = pytest.importorskip("jax")
 
-import torch.distributed as dist  # noqa: E402
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from torch.distributed.tensor import (Replicate, Shard,  # noqa: E402
                                       distribute_tensor)
@@ -51,9 +50,10 @@ HLO_KINDS = {"all-reduce", "all-gather", "reduce-scatter", "all-to-all",
 
 @pytest.fixture(scope="module", autouse=True)
 def fake_group():
+    # one group per process, left up for the worker's later files: DTensor
+    # caches redistribution plans by mesh shape, and a plan cached before
+    # a destroy names process groups that a new group does not have
     init_fake_group()
-    yield
-    dist.destroy_process_group()
 
 
 def _jax_paths(tree, fn):

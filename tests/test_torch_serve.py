@@ -732,17 +732,17 @@ def test_cli_smoke_passes_on_the_cpu():
 
 def test_cli_copies_the_benchmark_settings():
     import benchmarks.common as bench
-    from repro_torch.serve import __main__ as cli
+    from repro_torch.train import recipe
     want = bench.BENCH_M4
-    assert cli.BENCH_M4 == {k: getattr(want, k) for k in cli.BENCH_M4}
-    assert M4Config(**cli.BENCH_M4) == M4Config(**{
+    assert recipe.BENCH_M4 == {k: getattr(want, k) for k in recipe.BENCH_M4}
+    assert M4Config(**recipe.BENCH_M4) == M4Config(**{
         k: getattr(want, k) for k in ("hidden", "gnn_dim", "mlp_hidden",
                                       "gnn_layers", "snap_flows",
                                       "snap_links", "max_path", "cfg_dim",
                                       "dense_sldn")})
-    for k, v in cli.BENCH_TC.items():
+    for k, v in recipe.BENCH_TC.items():
         assert getattr(bench.BENCH_TC, k) == v
-    assert [s for s in cli.train_suite_spec()] == [
+    assert [s for s in recipe.train_suite_spec()] == [
         ScenarioSpec(**vars(s)) for s in bench.train_suite_spec()]
 
 
@@ -750,11 +750,11 @@ def test_cli_m4_loads_a_finished_checkpoint(tmp_path):
     """--backend m4 restores a finished checkpoint at the benchmark's
     width and trains nothing."""
     from repro_torch.serve import __main__ as cli
-    from repro_torch.train import TrainConfig, init_state
+    from repro_torch.train import TrainConfig, init_state, recipe
     from repro_torch.runtime import checkpoint as ckpt
-    cfg = M4Config(**cli.BENCH_M4)
+    cfg = M4Config(**recipe.BENCH_M4)
     state = init_state(cfg, 3, "cpu")
-    ckpt.save(str(tmp_path), TrainConfig(**cli.BENCH_TC).epochs,
+    ckpt.save(str(tmp_path), TrainConfig(**recipe.BENCH_TC).epochs,
               state.tree())
     logs = []
     params, got_cfg = cli.trained_m4(str(tmp_path), str(tmp_path / "data"),
