@@ -201,9 +201,11 @@ Phases, each printing one JSON line:
                  bf16 beside the bf16 forward's distance from the float32
                  one; the card against the CPU in float32, TF32 off, at
                  full width with depth cut (zamba2 6 layers: prefill of
-                 one SSD chunk and 16 decode steps; moonshot-v1-16b-a3b 1
-                 layer: forward on 16 tokens) at rtol 1e-4; no kernel of
-                 the port launched;
+                 one SSD chunk, 16 decode steps, and LM_PAST_STEPS from a
+                 state of LM_PAST_MAX_LEN, past its end, where the cache
+                 write clamps into the last slot as JAX's does;
+                 moonshot-v1-16b-a3b 1 layer: forward on 16 tokens) at
+                 rtol 1e-4; no kernel of the port launched;
 16. lm_train   — the LM's training and launch layer, plain PyTorch:
                  zamba2-2.7b as published (54 layers, d 2560, bf16, seed
                  0 on the card) through `repro_torch.launch.train.train`
@@ -229,8 +231,10 @@ Phases, each printing one JSON line:
                  a fake process group (collectives by kind, FLOPs, wall)
                  and its H100 roofline, and the MoE cell `moonshot-v1-
                  16b-a3b train_4k 16x16` (its MoE layer per shard; census
-                 by kind, op count, FLOPs per rank, wall); no kernel of
-                 the port launched;
+                 by kind, op count, FLOPs per rank, wall), and both
+                 archs' `decode_32k 16x16` (the KV cache written on each
+                 rank's slice of its time axis; the same census); no
+                 kernel of the port launched;
 17. collectives — examples/simulate_collectives_torch.py's pipeline on
                  that MoE record: per collective kind one ring pass of
                  COLLECTIVE_RANKS = 16 flows through numpy flowSim and m4
@@ -260,6 +264,7 @@ runs work stays under the `__main__` check.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -295,6 +300,8 @@ SHARD_TRAIN_FLOWS = 100    # sharded phase: 3 sims cut to K = 200 events
 LM_PREFILL = 1024          # lm phase: prefill tokens (4 SSD chunks) ...
 LM_DECODE_STEPS = 64       # ... and decode steps, at B = 2
 LM_DECODE_TOL = 5e-3       # decode vs forward, float32 (JAX's own bound)
+LM_PAST_MAX_LEN = 4        # lm phase, card vs CPU: a state this long ...
+LM_PAST_STEPS = 8          # ... decoded this far, past its end
 LM_TRAIN_STEPS = 4         # lm_train phase: zamba2-2.7b at full size ...
 LM_CUT_LAYERS = 6          # ... then at one shared-attention group
 LM_SEQ = 256               # one SSD chunk: zamba2's scan needs S % 256 == 0,
@@ -839,8 +846,9 @@ def fs_recorded(req, device, probes=None):
 
 def cpu_dryruns():
     """The lm_train phase's dry-run cells on a fake process group:
-    gemma2-9b's and MOE_CELL's `train_4k 16x16` records and gemma2's
-    roofline."""
+    gemma2-9b's and MOE_CELL's `train_4k 16x16` records, gemma2's
+    roofline, and {cell: record} of both archs' `decode_32k 16x16`
+    (the KV cache written on each rank's slice of its time axis)."""
     import torch.distributed as dist
     from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.mesh import init_fake_group
@@ -852,12 +860,15 @@ def cpu_dryruns():
                                      log=lambda *a: None)
         moe_rec = dryrun.lower_cell(MOE_CELL, "train_4k", False,
                                     verbose=False)
+        decodes = {f"{arch} decode_32k 16x16": dryrun.lower_cell(
+            arch, "decode_32k", False, verbose=False)
+            for arch in ("gemma2-9b", MOE_CELL)}
     finally:
         dist.destroy_process_group()
     return rec, {k: roof[k] for k in (
         "flops_dev", "bytes_dev", "coll_bytes_dev", "t_compute_s",
         "t_memory_s", "t_collective_s", "dominant", "useful_ratio",
-        "roofline_fraction", "analysis_s")}, moe_rec
+        "roofline_fraction", "analysis_s")}, moe_rec, decodes
 
 
 def lm_cpu_cfg(torch, arch, layers):
@@ -874,7 +885,6 @@ def lm_cpu_start(torch, dev):
     thread that runs the CPU steps beside the card's later phases (their
     large operators leave the GIL free). Returns the executor and
     {arch: future of (losses, wall)}."""
-    import concurrent.futures
     from repro_torch.models import lm
     from repro_torch.weights import params_to
 
@@ -2726,7 +2736,7 @@ def phase_sharded(torch, np, m4, fs, cfg, dev, smi):
     return total
 
 
-def phase_lm(torch, np, dev, smi):
+def phase_lm(torch, np, dev, smi, wait_for=()):
     """The LM substrate's serving path (`repro_torch.models`, plain
     PyTorch: it has no TPU kernel and launches none of the port's):
     zamba2-2.7b at its full configuration (54 layers, d 2560, bf16) from
@@ -2740,14 +2750,19 @@ def phase_lm(torch, np, dev, smi):
     weights amplify bf16 rounding through 54 layers, so no bound is held
     there). Then the card against the CPU in float32 with TF32 off at
     full width, depth cut (zamba2 at 6 layers, one shared-attention
-    site: prefill of one SSD chunk and 16 `serve_step`s;
+    site: prefill of one SSD chunk, 16 `serve_step`s, and LM_PAST_STEPS
+    from a state of length LM_PAST_MAX_LEN, past its end;
     moonshot-v1-16b-a3b at 1 layer: forward on 16 tokens), at rtol 1e-4
-    (atol 1e-4 of the logits' max abs)."""
+    (atol 1e-4 of the logits' max abs). The eager decode is host-bound,
+    so it first waits for `wait_for` (the futures of the LM's CPU steps,
+    which take most of the host's cores)."""
     from repro_torch import configs
     from repro_torch.models import lm
     from repro_torch.weights import params_to, tree_leaves
 
     t_phase = time.perf_counter()
+    concurrent.futures.wait(list(wait_for), timeout=CPU_SIDE_TIMEOUT_S)
+    waited_s = time.perf_counter() - t_phase
     counters = launch_counters()
     for f in counters.values():
         f.launches = 0
@@ -2834,7 +2849,7 @@ def phase_lm(torch, np, dev, smi):
                  decode_vs_forward_tol_fp32=LM_DECODE_TOL,
                  decode_vs_forward_rel_bf16=gap16 / scale,
                  bf16_forward_vs_fp32_forward_rel=bf16_fwd / scale,
-                 card=smi)
+                 waited_for_cpu_steps_s=waited_s, card=smi)
             finite("forward", full32)
             if gap32 > LM_DECODE_TOL * scale:
                 raise AssertionError(f"lm: float32 decode/forward gap "
@@ -2843,7 +2858,7 @@ def phase_lm(torch, np, dev, smi):
 
             # ---- the card against the CPU, float32, depth cut
             for arch, layers, call in (
-                    ("zamba2-2.7b", 6, "prefill+decode"),
+                    ("zamba2-2.7b", 6, "prefill+decode+past_max_len"),
                     ("moonshot-v1-16b-a3b", 1, "forward")):
                 c = configs.get_config(arch).with_(num_layers=layers,
                                                    dtype=torch.float32)
@@ -2857,12 +2872,14 @@ def phase_lm(torch, np, dev, smi):
                                           remat=False)[0][0]]
                     else:
                         got = [lm.prefill_step(pp, c, {"tokens": tk})]
-                        st = lm.init_decode_state(c, 1, 16,
-                                                  device=tk.device)
-                        for t in range(16):
-                            st, lg = lm.serve_step(pp, c, st,
-                                                   {"tokens": tk[:, t:t + 1]})
-                            got.append(lg)
+                        for n, max_len in ((16, 16),
+                                           (LM_PAST_STEPS, LM_PAST_MAX_LEN)):
+                            st = lm.init_decode_state(c, 1, max_len,
+                                                      device=tk.device)
+                            for t in range(n):
+                                st, lg = lm.serve_step(
+                                    pp, c, st, {"tokens": tk[:, t:t + 1]})
+                                got.append(lg)
                     outs[where] = (torch.cat([x.reshape(-1, x.shape[-1])
                                               for x in got]).cpu(),
                                    time.perf_counter() - t0)
@@ -2870,9 +2887,14 @@ def phase_lm(torch, np, dev, smi):
                 finite(f"{arch} card", gc)
                 tol = 1e-4 * float(cc.abs().max())
                 err = float((gc - cc).abs().max())
+                past = {} if call == "forward" else {
+                    "past_max_len": LM_PAST_MAX_LEN,
+                    "past_steps": LM_PAST_STEPS,
+                    "past_max_abs_diff": float((gc - cc)[-LM_PAST_STEPS:]
+                                               .abs().max())}
                 emit("lm", step="cpu", arch=arch, layers=layers,
                      d_model=c.d_model, call=call, rows=gc.shape[0],
-                     max_abs_diff=err, atol=tol, rtol=1e-4,
+                     max_abs_diff=err, atol=tol, rtol=1e-4, **past,
                      cpu_wall_s=cpu_s, card=smi)
                 if not torch.allclose(gc, cc, rtol=1e-4, atol=tol):
                     raise AssertionError(f"lm {arch}: card and CPU differ "
@@ -3112,7 +3134,7 @@ def phase_lm_train(torch, np, dev, smi, lm_cpu, dry_job,
     # ---- the dry-run's cells and gemma2's roofline, on a fake process
     # group (dry_job: cpu_dryruns on the CPU side): a dense cell and an
     # MoE cell (its layer per shard)
-    rec, roof, moe_rec = dry_job.get(CPU_SIDE_TIMEOUT_S)
+    rec, roof, moe_rec, decodes = dry_job.get(CPU_SIDE_TIMEOUT_S)
     emit("lm_train", step="dryrun", cell="gemma2-9b train_4k 16x16",
          collective_kinds=rec["collective_kinds"],
          collective_ops=rec["collective_ops"],
@@ -3130,6 +3152,16 @@ def phase_lm_train(torch, np, dev, smi, lm_cpu, dry_job,
     if not (moe_rec["collective_ops"] and moe_rec["collective_kinds"]
             and moe_rec["flops"]):
         raise AssertionError(f"lm_train dryrun: empty census {moe_rec}")
+    # the decode cells: the KV cache's write on each rank's slice of T
+    for cell, dec in decodes.items():
+        emit("lm_train", step="dryrun", cell=cell,
+             collective_kinds=dec["collective_kinds"],
+             collective_ops=dec["collective_ops"],
+             collective_bytes=dec["collective_bytes"], flops=dec["flops"],
+             wall_s=dec["lower_s"], torch=torch.__version__, card=smi)
+        if not (dec["collective_ops"] and dec["collective_kinds"]
+                and dec["flops"]):
+            raise AssertionError(f"lm_train dryrun: empty census {dec}")
 
     counts = {k: f.launches for k, f in counters.items()}
     if counts != launches():
@@ -3307,7 +3339,7 @@ def smoke(torch, np, cpu_side):
     fabric_launches = phase_fabric(torch, np, m4, fs, dev, smi,
                                    fabric_cpu_job)
     sharded_launches = phase_sharded(torch, np, m4, fs, cfg, dev, smi)
-    phase_lm(torch, np, dev, smi)
+    phase_lm(torch, np, dev, smi, lm_cpu.values())
     moe_rec = phase_lm_train(torch, np, dev, smi, lm_cpu, dry_job,
                              LM_RESUME_D_MODEL)
     lm_threads.shutdown()

@@ -20,9 +20,10 @@ mesh-axis name, a tuple of names, or None; `P()` replicates.
 mesh dimension.
 
 All the model's layers know of a mesh (the dry-run's DTensors) is in
-the last four functions, the identity or a plain call on plain tensors:
-`activation` (JAX's layout of an activation), `whole_heads`, `head_parts`
-and `per_shard` (JAX's `shard_map`, by `local_map`), which runs a
+the last five functions, the identity or a plain call on plain tensors:
+`activation` (JAX's layout of an activation), `reduced` (a pending sum
+reduced), `whole_heads`, `head_parts` and `per_shard` (JAX's
+`shard_map`, by `local_map`), which runs a
 computation independent per batch row and head on each rank's shards
 where DTensor cannot shard it itself.
 """
@@ -193,6 +194,19 @@ def activation(x):
     mesh = x.device_mesh
     return x.redistribute(mesh, [Shard(0) if _split_by(a, ()) else
                                  Replicate() for a in mesh.mesh_dim_names])
+
+
+def reduced(t):
+    """`t` with its pending sums (Partial) reduced and its other
+    placements kept; the identity on plain tensors. Torch 2.11's DTensor
+    computes the gradient of a nonlinear op on a Partial operand (the
+    log's) from each rank's unreduced share, so a sum goes through this
+    before such an op."""
+    if not isinstance(t, DTensor):
+        return t
+    keep = [Replicate() if p.is_partial() else p for p in t.placements]
+    return t if keep == list(t.placements) else t.redistribute(t.device_mesh,
+                                                               keep)
 
 
 def whole_heads(t, heads):

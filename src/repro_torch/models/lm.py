@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..launch.sharding import SUM, activation, per_shard
+from ..launch.sharding import SUM, activation, per_shard, reduced
 from ..nn import (AttnCfg, MoECfg, SSMCfg, attn_decode, attn_forward,
                   attn_init, embedding, embedding_init, lecun_normal, linear,
                   linear_init, moe_forward, moe_init, rmsnorm, rmsnorm_init,
@@ -312,7 +312,7 @@ def _sharded_nll(logits, labels):
     sumexp, label_logit = per_shard(
         sums, (logits, lmax, labels), ((0, 2), (0, None), (0, None)),
         ((0, SUM), (0, SUM)), heads=V)
-    return torch.log(sumexp) - label_logit
+    return torch.log(reduced(sumexp)) - label_logit
 
 
 def loss_fn(params, cfg: ArchCfg, batch, *, unroll=False):

@@ -147,17 +147,41 @@ def _attend(cfg: AttnCfg, q, k, v, mask):
         ((0, 2),), heads=H if split else None, over=cfg.batch_axes)
 
 
+def _write(k_cache, v_cache, k, v, cache_len):
+    """New caches with the token's k and v (B,1,Hkv,D) written at slot
+    `min(max(cache_len, 0), T - 1)`: JAX's `dynamic_update_slice` clamps
+    its start so the update fits. On DTensors each rank writes its own
+    slice of T (the caches' time axis is split over `model`,
+    `decode_state_spec`; `per_shard` with T in the role of heads hands
+    each rank its first slot as `h0`): DTensor has no rule for
+    `index_copy` in some torch versions."""
+    T = k_cache.shape[1]
+
+    def write(kc, vc, k, v, t, h0=0):
+        hit = torch.arange(h0, h0 + kc.shape[1], device=kc.device) \
+            == t.clamp(0, T - 1)
+        hit = hit[None, :, None, None]
+        return torch.where(hit, k, kc), torch.where(hit, v, vc)
+
+    return sharding.per_shard(
+        write, (k_cache, v_cache, k, v, cache_len),
+        ((0, 1), (0, 1), (0, None), (0, None), (None, None)),
+        ((0, 1), (0, 1)), heads=T)
+
+
 def attn_decode(p, cfg: AttnCfg, x, positions, k_cache, v_cache, cache_len):
     """One-token decode. x: (B,1,d); caches: (B,T,Hkv,D); cache_len: a
     0-d integer tensor (or int), the new token's index.
 
     Returns (out, new_k_cache, new_v_cache): new tensors, the token's k
-    and v written at `cache_len`; the caches passed in are not written."""
+    and v written by `_write` (past T into the last slot); the caches
+    passed in are not written. The mask keeps the unclamped `cache_len`:
+    past T it admits every slot, as JAX's does."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     T = k_cache.shape[1]
-    idx = torch.as_tensor(cache_len, device=x.device).reshape(1).long()
-    k_cache = k_cache.index_copy(1, idx, k.to(k_cache.dtype))
-    v_cache = v_cache.index_copy(1, idx, v.to(v_cache.dtype))
+    cache_len = torch.as_tensor(cache_len, device=x.device)
+    k_cache, v_cache = _write(k_cache, v_cache, k.to(k_cache.dtype),
+                              v.to(v_cache.dtype), cache_len)
     j = torch.arange(T, device=x.device)[None, None, None, :]
     mask = j <= cache_len                          # (1,1,1,T)
     if cfg.sliding_window > 0:

@@ -65,10 +65,19 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _causal_conv(x, w, b):
-    """x: (B, S, C); w: (K, C) depthwise causal conv."""
-    K, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, K - 1, 0))
-    return sum(pad[:, i:i + S, :] * w[i] for i in range(K)) + b
+    """x: (B, S, C); w: (K, C) depthwise causal conv. On DTensors each
+    rank convolves its own rows (`sharding.per_shard`: DTensor's rule for
+    the padding fails in some torch versions); the channels stay whole,
+    as the input's are after the projection's split and concatenation,
+    so only the (K, C) weight is gathered."""
+    def conv(x, w, b):
+        K, S = w.shape[0], x.shape[1]
+        pad = F.pad(x, (0, 0, K - 1, 0))
+        return sum(pad[:, i:i + S, :] * w[i] for i in range(K)) + b
+
+    return sharding.per_shard(conv, (x, w, b),
+                              ((0, None), (None, None), (None, None)),
+                              ((0, None),))
 
 
 def _ssd_chunked(xh, dtA, Bm, Cm, chunk: int, h0=None):

@@ -8,7 +8,9 @@ archs at `reduce_for_smoke`, on the CPU. The weights are the port's
   (the loss also through the remat path, autograd on) at rtol and atol
   1e-5 against JAX's;
 - eight `serve_step`s from an empty state: logits at 1e-5 and the state
-  (caches, SSM states, `cache_len`) against JAX's;
+  (caches, SSM states, `cache_len`) against JAX's; and six from a state
+  of length 4, past its end, where JAX clamps the cache write into the
+  last slot;
 - the port's own decode against its forward on the prefix, at JAX's
   bound (tests/test_arch_smoke.py:79-103, 5e-3);
 - the full configs' `param_count()` equal to JAX's, their dtypes
@@ -37,6 +39,7 @@ ARCHS = configs.list_archs()
 TOL = 1e-5
 DECODE_VS_FORWARD = 5e-3
 B, S, STEPS = 2, 16, 8
+PAST_MAX_LEN, PAST_STEPS = 4, 6     # two steps past the cache's length
 
 
 def _batch(cfg, rng, B, S):
@@ -93,7 +96,8 @@ def computed(arch):
         state, lg = step(jp, state, {k: jnp.asarray(v) for k, v in
                                      _step_batch(batch, t).items()})
         steps.append(np.asarray(lg))
-    _CACHE[arch] = dict(cfg=cfg, params=params, batch=batch,
+    _CACHE[arch] = dict(cfg=cfg, jcfg=jcfg, params=params, jparams=jp,
+                        batch=batch, step=step,
                         logits=np.asarray(logits), aux=float(aux),
                         prefill=np.asarray(prefill), loss=float(loss),
                         steps=steps, state=jax.device_get(state))
@@ -143,6 +147,30 @@ def test_serve_steps_match_jax(arch):
     assert int(state["cache_len"]) == int(c["state"]["cache_len"]) == STEPS
     for k, v in state.items():
         close(v, c["state"][k])
+
+
+# a GQA arch, one with a sliding window, and the hybrid's shared attention
+@pytest.mark.parametrize("arch", ["gemma-7b", "gemma2-9b", "zamba2-2.7b"])
+def test_serve_steps_past_max_len_match_jax(arch):
+    """Decoding past the cache's length: JAX's `dynamic_update_slice`
+    clamps the write into the last slot, and the mask then admits every
+    slot; the port does the same."""
+    c = computed(arch)
+    cfg, params = c["cfg"], c["params"]
+    jstate = jlm.init_decode_state(c["jcfg"], B, PAST_MAX_LEN)
+    state = lm.init_decode_state(cfg, B, PAST_MAX_LEN)
+    with torch.no_grad():
+        for t in range(PAST_STEPS):
+            step = _step_batch(c["batch"], t)
+            jstate, want = c["step"](c["jparams"], jstate, {
+                k: jnp.asarray(v) for k, v in step.items()})
+            state, lg = lm.serve_step(params, cfg, state, _torch_batch(step))
+            close(lg, np.asarray(want))
+    jstate = jax.device_get(jstate)
+    assert sorted(state) == sorted(jstate)
+    assert int(state["cache_len"]) == int(jstate["cache_len"]) == PAST_STEPS
+    for k, v in state.items():
+        close(v, jstate[k])
 
 
 # all but llama4-scout, whose top-1 routing at this width can pass an
