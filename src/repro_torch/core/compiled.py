@@ -47,6 +47,14 @@ card its graph holds one whole update (forward, backward, clipping and
 AdamW, written in place into the program's buffers), and all the
 programs of one cache share one pool (they never run at once).
 
+**Spans** (`repro_torch.obs.trace`, off unless a trace directory is set
+or the profiler records): each shard of a call is a `compiled.run`
+(attributes `entry`, `device`, `new`), holding `compiled.load`,
+`compiled.capture` on an entry's first call on a card (`graphs`,
+`pool_bytes`) and `compiled.replay` (`replays`: graph launches, or eager
+steps on the CPU). They time the host: the replays' wait for the device
+shows in the span that copies the results back.
+
 `eager()` runs the loops and the training steps without the cache, as
 plain eager calls on any device: the comparison of a captured program
 with its eager twin on the card uses it, and nothing else should.
@@ -62,6 +70,8 @@ import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from ..obs.trace import get_tracer
 
 # every run goes through one lock: entries are process-wide, and the GNN
 # kernel's grid barrier allows one launch per card at a time
@@ -158,23 +168,32 @@ class Entry:
         self.calls = 0
 
     def run(self, *args) -> tuple:
-        prog = self.program
-        prog.load(*args)
+        prog, tracer = self.program, get_tracer()
+        with tracer.span("compiled.load"):
+            prog.load(*args)
+        replays = sum(times for _, times in prog.plan)
         if self.device.type == "cuda":
             # the capture stream is the current device's: a shard's entry
             # on another card captures and replays there
             with torch.cuda.device(self.device):
                 if not self.graphs:
-                    self._capture()
-                    prog.load(*args)    # the warm-up advanced the state
-                for name, times in prog.plan:
-                    graph = self.graphs[name]
-                    for _ in range(times):
-                        graph.replay()
-                    for fn, n in self.launches[name].items():
-                        fn.launches += n * times
+                    with tracer.span("compiled.capture") as sp:
+                        self._capture()
+                        sp.attr("graphs", len(self.graphs))
+                        sp.attr("pool_bytes", self.pool_bytes)
+                    with tracer.span("compiled.load"):
+                        prog.load(*args)  # the warm-up advanced the state
+                with tracer.span("compiled.replay", attrs={
+                        "replays": replays}):
+                    for name, times in prog.plan:
+                        graph = self.graphs[name]
+                        for _ in range(times):
+                            graph.replay()
+                        for fn, n in self.launches[name].items():
+                            fn.launches += n * times
         else:
-            prog.run_eager()
+            with tracer.span("compiled.replay", attrs={"replays": replays}):
+                prog.run_eager()
         self.calls += 1
         return prog.result()
 
@@ -245,8 +264,13 @@ def run_sharded(counts, name: str, key: tuple, build: Callable[..., Program],
                  for dev, _ in shards]
         if any(full not in _CACHE for full in fulls):
             counts[name] += 1
-        return [_run_entry(full, torch.device(dev), build, args)
-                for full, (dev, args) in zip(fulls, shards)]
+        tracer, out = get_tracer(), []
+        for full, (dev, args) in zip(fulls, shards):
+            with tracer.span("compiled.run", attrs={
+                    "entry": name, "device": full[-1],
+                    "new": full not in _CACHE}):
+                out.append(_run_entry(full, torch.device(dev), build, args))
+        return out
 
 
 def _run_entry(full: tuple, device: torch.device, build, args) -> tuple:

@@ -42,6 +42,12 @@ rates of the active set (one more `waterfill_event` call, on stride hits
 only), the exact remaining bytes, and the active flows per link. With
 probes off the loop is unchanged. `record=True`, the per-event log the
 tests read, runs the same program eagerly and uncached.
+
+A call's host work is in spans (`repro_torch.obs.trace`): `sim.prep`
+(the sizes and `_pack` of each scenario), `sim.upload` (`_to_device`'s
+stacking and pageable copy; `bytes`, `pinned`), `sim.incidence`
+(`width`), then the program's `compiled.run`, `sim.readback` and
+`sim.results`; the caller's span gets N and L.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ import torch
 from ..kernels import dispatch
 from ..kernels.waterfill.layout import IncidenceLists
 from ..kernels.waterfill.ref import BIG, MAX_ROUNDS, TIE  # noqa: F401
+from ..obs.trace import NULL_SPAN, get_tracer
 from . import compiled
 from . import probes as _probes
 from . import sharding
@@ -210,7 +217,9 @@ def _event_scan_sharded(a, cap, sizes_bits, arr_times, arr_order, devices):
     cols = sharding.shard_leaves([a, cap, sizes_bits, arr_times, arr_order],
                                  D)
     shards = [[x[i].to(dev) for x in cols] for i, dev in enumerate(devices)]
-    incs, width = _incidences([args[0] for args in shards])
+    with get_tracer().span("sim.incidence") as sp:
+        incs, width = _incidences([args[0] for args in shards])
+        sp.attr("width", width)
     key = (D, cols[0].shape[1], N, L, width)
 
     def build(*args):
@@ -236,7 +245,9 @@ def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
     `probes`, last the ring buffers (see `core.probes`)."""
     B, N, L = a.shape
     length = 2 * N if num_events is None else num_events
-    (incidence,), width = _incidences([a])
+    with get_tracer().span("sim.incidence") as sp:
+        (incidence,), width = _incidences([a])
+        sp.attr("width", width)
     args = (a, cap, sizes_bits, arr_times, arr_order, incidence)
 
     def build(*args):
@@ -322,24 +333,33 @@ def run_flowsim_fast(topo, flows, device="cuda", probes: ProbeConfig = None):
 
 
 def run_flowsim_fast_batch(scenarios, device="cuda",
-                           probes: ProbeConfig = None):
+                           probes: ProbeConfig = None, span=NULL_SPAN):
     """B (topo, flows) scenarios padded to the largest flow/link count and
     run as one batch of arenas. Returns a list of FlowSimResult; with
     `probes`, each carries its own series, trimmed to its flows and
-    links."""
-    return _run(scenarios, device, probes, "event_scan_batched")
+    links. `span`, the caller's open span, gets the padded sizes N and L
+    as attributes."""
+    return _run(scenarios, device, probes, "event_scan_batched", span)
 
 
-def _run(scenarios, device, probes, entry):
+def _run(scenarios, device, probes, entry, span=NULL_SPAN):
     probes = normalize_probes(probes, FLOWSIM_CHANNELS)
     scenarios = list(scenarios)
     if not scenarios:
         return []
+    tracer = get_tracer()
     dispatch.count_dispatch(device)
-    n_max = max(len(flows) for _, flows in scenarios)
-    l_max = max(topo.num_links for topo, _ in scenarios)
-    args = _to_device([_pack(topo, flows, n_total=n_max, l_total=l_max)
-                       for topo, flows in scenarios], device)
+    with tracer.span("sim.prep"):
+        n_max = max(len(flows) for _, flows in scenarios)
+        l_max = max(topo.num_links for topo, _ in scenarios)
+        packed = [_pack(topo, flows, n_total=n_max, l_total=l_max)
+                  for topo, flows in scenarios]
+    span.attr("N", n_max).attr("L", l_max)
+    with tracer.span("sim.upload") as sp:
+        args = _to_device(packed, device)
+        del packed
+        sp.attr("bytes", sum(x.numel() * x.element_size() for x in args))
+        sp.attr("pinned", False)
     # JAX's pmap path: more than one device, a batch of at least one
     # scenario per device, and no probes
     devices = sharding.local_devices(device)
@@ -349,19 +369,21 @@ def _run(scenarios, device, probes, entry):
         out = _event_scan_sharded(*args, devices)
     else:
         out = _event_scan_core(*args, probes=probes, entry=entry)
-    if probes is None:
-        fct_abs, bufs = out.cpu().numpy(), None
-    else:
-        fct_abs = out[0].cpu().numpy()
-        bufs = _probes.buffers_numpy(out[1])
+    with tracer.span("sim.readback"):
+        if probes is None:
+            fct_abs, bufs = out.cpu().numpy(), None
+        else:
+            fct_abs = out[0].cpu().numpy()
+            bufs = _probes.buffers_numpy(out[1])
     wall = time.perf_counter() - t0
     results = []
-    for b, (topo, flows) in enumerate(scenarios):
-        series = None
-        if bufs is not None:
-            series = _finalize_fs_series(
-                probes, {k: v[b] for k, v in bufs.items()}, topo, flows,
-                num_flows=n_max, num_links=l_max)
-        results.append(_result(topo, flows, fct_abs[b],
-                               wall / len(scenarios), series))
+    with tracer.span("sim.results"):
+        for b, (topo, flows) in enumerate(scenarios):
+            series = None
+            if bufs is not None:
+                series = _finalize_fs_series(
+                    probes, {k: v[b] for k, v in bufs.items()}, topo, flows,
+                    num_flows=n_max, num_links=l_max)
+            results.append(_result(topo, flows, fct_abs[b],
+                                   wall / len(scenarios), series))
     return results

@@ -36,6 +36,12 @@ GNN on any device).
 per link, active flows per link, predicted remaining bytes per flow)
 every `stride` events into ring buffers on the device
 (`repro_torch.core.probes`); with probes off the loop is unchanged.
+
+A call's host work is in spans (`repro_torch.obs.trace`): `sim.prep`
+(the padded sizes, `make_static` and the arrival order of each
+scenario), `sim.upload` (`stack_static` and the schedule's copies;
+`bytes`, `pinned`), then the program's `compiled.run`, `sim.readback`
+and `sim.results`; the caller's span gets N, L and K.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ import torch
 
 from ..kernels import dispatch
 from ..nn import mlp
+from ..obs.trace import NULL_SPAN, get_tracer
 from ..weights import tree_map
 from . import compiled
 from . import probes as _probes
@@ -637,7 +644,8 @@ def simulate_open_loop(params, cfg: M4Config, topo, net_config, flows, *,
 
 def simulate_open_loop_batch(params, cfg: M4Config, scenarios, *,
                              snapshot_impl="incremental",
-                             probes: ProbeConfig = None) -> list:
+                             probes: ProbeConfig = None,
+                             span=NULL_SPAN) -> list:
     """Run many scenarios as one batch of arenas.
 
     scenarios: sequence of (topo, net_config, flows). Arenas are padded to
@@ -647,38 +655,48 @@ def simulate_open_loop_batch(params, cfg: M4Config, scenarios, *,
     buffers, sliced and trimmed to each scenario's flows and links on the
     host). With several devices the batch is sharded across them, as
     JAX's pmap path (`_open_loop_sharded`); a probed batch, the dense
-    program and a batch smaller than the device count stay batched."""
+    program and a batch smaller than the device count stay batched.
+    `span`, the caller's open span, gets the padded sizes N, L and K as
+    attributes."""
     return _run_open_loop(params, cfg, scenarios, entry="open_loop_batched",
-                          snapshot_impl=snapshot_impl, probes=probes)
+                          snapshot_impl=snapshot_impl, probes=probes,
+                          span=span)
 
 
 def _run_open_loop(params, cfg: M4Config, scenarios, *, entry: str,
                    warmup=False, snapshot_impl="incremental",
-                   probes: ProbeConfig = None) -> list:
+                   probes: ProbeConfig = None, span=NULL_SPAN) -> list:
     probes = normalize_probes(probes, M4_CHANNELS)
     scenarios = list(scenarios)
     if not scenarios:
         return []
+    tracer = get_tracer()
     device = _device(params)
     dispatch.count_dispatch(device, plain=snapshot_impl == "dense")
-    n_max = max(len(flows) for _, _, flows in scenarios)
-    l_max = max(topo.num_links for topo, _, _ in scenarios)
-    k_max = max(max_link_degree(flows, cfg.max_path)
-                for _, _, flows in scenarios)
-    statics, orders, times, ideals, counts = [], [], [], [], []
-    for topo, net_config, flows in scenarios:
-        static, _, ideal = make_static(topo, flows, net_config, cfg,
-                                       n_total=n_max, l_total=l_max,
-                                       k_total=k_max)
-        order, t = _arrival_order(static)
-        statics.append(static)
-        orders.append(order)
-        times.append(t)
-        ideals.append(ideal)
-        counts.append(len(flows))
-    static = stack_static(statics, device)
-    order_b = torch.from_numpy(np.stack(orders)).long().to(device)
-    times_b = torch.from_numpy(np.stack(times)).to(device)
+    with tracer.span("sim.prep"):
+        n_max = max(len(flows) for _, _, flows in scenarios)
+        l_max = max(topo.num_links for topo, _, _ in scenarios)
+        k_max = max(max_link_degree(flows, cfg.max_path)
+                    for _, _, flows in scenarios)
+        statics, orders, times, ideals, counts = [], [], [], [], []
+        for topo, net_config, flows in scenarios:
+            static, _, ideal = make_static(topo, flows, net_config, cfg,
+                                           n_total=n_max, l_total=l_max,
+                                           k_total=k_max)
+            order, t = _arrival_order(static)
+            statics.append(static)
+            orders.append(order)
+            times.append(t)
+            ideals.append(ideal)
+            counts.append(len(flows))
+    span.attr("N", n_max).attr("L", l_max).attr("K", k_max)
+    with tracer.span("sim.upload") as sp:
+        static = stack_static(statics, device)
+        order_b = torch.from_numpy(np.stack(orders)).long().to(device)
+        times_b = torch.from_numpy(np.stack(times)).to(device)
+        sp.attr("bytes", sum(x.numel() * x.element_size() for x in
+                             (*static.values(), order_b, times_b)))
+        sp.attr("pinned", False)
 
     # JAX's pmap path: more than one device, a batch of at least one
     # scenario per device, the incremental snapshot builder and no probes
@@ -696,26 +714,28 @@ def _run_open_loop(params, cfg: M4Config, scenarios, *, entry: str,
             out = _open_loop_core(params, cfg, l_max, static, order_b,
                                   times_b, probes,
                                   snapshot_impl=snapshot_impl, entry=entry)
-        fct = out[0].cpu().numpy()
-        bufs = None if probes is None else _probes.buffers_numpy(out[2])
+        with tracer.span("sim.readback"):
+            fct = out[0].cpu().numpy()
+            bufs = None if probes is None else _probes.buffers_numpy(out[2])
         return fct, bufs, time.perf_counter() - t0
 
     compile_wall = call()[2] if warmup else 0.0
     fct, bufs, wall = call()
     results = []
-    for b, n in enumerate(counts):
-        series = None
-        if bufs is not None:
-            topo_b, _, flows_b = scenarios[b]
-            series = _finalize_m4_series(
-                probes, {k: v[b] for k, v in bufs.items()}, flows_b,
-                num_flows=n_max, num_links=l_max,
-                trim_links=topo_b.num_links)
-        results.append(M4Result(fcts=fct[b, :n],
-                                slowdowns=fct[b, :n] / ideals[b][:n],
-                                wallclock=wall / len(scenarios),
-                                compile_wall=compile_wall,
-                                probes=series))
+    with tracer.span("sim.results"):
+        for b, n in enumerate(counts):
+            series = None
+            if bufs is not None:
+                topo_b, _, flows_b = scenarios[b]
+                series = _finalize_m4_series(
+                    probes, {k: v[b] for k, v in bufs.items()}, flows_b,
+                    num_flows=n_max, num_links=l_max,
+                    trim_links=topo_b.num_links)
+            results.append(M4Result(fcts=fct[b, :n],
+                                    slowdowns=fct[b, :n] / ideals[b][:n],
+                                    wallclock=wall / len(scenarios),
+                                    compile_wall=compile_wall,
+                                    probes=series))
     return results
 
 

@@ -2,7 +2,7 @@
 
 The port's counterpart of `repro.obs.jaxprof`. :func:`phase` wraps a
 named region of work and records, into the process registry and (when
-tracing is on) as a span:
+tracing is on, or `torch.profiler` records) as a span:
 
 * ``phase.<name>.calls`` and the wall-clock seconds ``phase.<name>.wall_s``;
 * ``phase.<name>.live_bytes``: the bytes the CUDA caching allocator holds

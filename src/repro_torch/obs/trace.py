@@ -17,8 +17,20 @@ makes the child's top-level spans children of a parent-process span.
 JAX package's fleet does) its deterministic trace id, so every retry of
 a task shares one trace.
 
-Tracing is opt-in. With no trace dir configured the tracer hands out a
-shared no-op span: no I/O, no id generation and no timestamping.
+A span pushed on the thread's stack (`Tracer.span`, and so
+`torchprof.phase`) has a second sink: while `torch.profiler` records,
+it also opens a `torch.profiler.record_function` range of the same name
+on the same thread, closed when the span ends. The profiler's host
+clock is the epoch's, as `time.time()` is, so those ranges and the JSONL
+records share one clock with the profiler's device trace. Spans made by
+`Tracer.start` and `emit_span` cross threads and stay JSONL-only: a
+profiler range must close on the thread that opened it. No span waits
+for the device; a span times the host, and a wait for the device shows
+in the span that copies results back.
+
+Tracing is opt-in. With no trace dir configured and the profiler not
+recording, the tracer hands out a shared no-op span: no I/O, no id
+generation and no timestamping.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import sys
 import threading
 import time
 import uuid
@@ -44,12 +57,20 @@ def task_trace_id(task_id: str) -> str:
     return hashlib.sha256(task_id.encode()).hexdigest()[:16]
 
 
+def profiling() -> bool:
+    """Whether `torch.profiler` is recording; False when torch was never
+    imported (this module does not import it)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
 class Span:
     """A live span; written out as one JSONL record when ended."""
 
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id",
         "t_start", "t_end", "attrs", "status", "_tracer", "_pop",
+        "_range",
     )
 
     def __init__(self, tracer: "Tracer", name: str, trace_id: str,
@@ -65,6 +86,7 @@ class Span:
         self.attrs: Dict[str, object] = dict(attrs or {})
         self.status = "ok"
         self._pop = False
+        self._range = None       # the profiler's range, while recording
 
     def attr(self, key: str, value: object) -> "Span":
         self.attrs[key] = value
@@ -74,13 +96,17 @@ class Span:
         if self.t_end is not None:  # idempotent
             return
         self.t_end = time.time()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         if status is not None:
             self.status = status
         if attrs:
             self.attrs.update(attrs)
         if self._pop:
             self._tracer._pop_span(self)
-        self._tracer._emit(self._record())
+        if self._tracer.enabled:
+            self._tracer._emit(self._record())
 
     def _record(self) -> dict:
         return {
@@ -107,7 +133,7 @@ class Span:
 
 
 class _NullSpan:
-    """Shared no-op span: tracing off costs one attribute lookup."""
+    """Shared no-op span: tracing off costs two flag checks."""
 
     __slots__ = ()
     name = ""
@@ -154,6 +180,7 @@ class Tracer:
 
     @property
     def enabled(self) -> bool:
+        """Whether spans are written to JSONL files."""
         return self.dir is not None
 
     # -- span creation ---------------------------------------------------
@@ -186,11 +213,18 @@ class Tracer:
              attrs: Optional[dict] = None):
         """Create a span and push it on the thread-local stack, so
         spans opened inside it become its children.  Use as a context
-        manager."""
-        if not self.enabled:
+        manager, ended on the thread that opened it. While
+        `torch.profiler` records, the span is also a `record_function`
+        range of its name; with neither sink on it is `NULL_SPAN`."""
+        prof = profiling()
+        if self.dir is None and not prof:
             return NULL_SPAN
         sp = self._make(name, parent, trace_id, span_id, attrs)
         sp._pop = True
+        if prof:
+            sp._range = sys.modules["torch"].profiler.record_function(name)
+            sp.t_start = time.time()    # the range starts early in enter
+            sp._range.__enter__()
         self._stack().append(sp)
         return sp
 

@@ -18,6 +18,12 @@ of the JAX package. Four simulators are registered:
 raise when no card is present and never carry on silently on the CPU.
 Pass device="cpu" to run the plain PyTorch versions of the kernels.
 `packet` and `flowsim` run on the host in both packages.
+
+Their `run_many` opens the span `sim.run_many` (`repro_torch.obs.trace`:
+a JSONL record under `REPRO_TRACE_DIR`, a `torch.profiler` range while
+the profiler records), with the loop's spans below it: `sim.prep`,
+`sim.upload`, (flowSim) `sim.incidence`, `compiled.run`, `sim.readback`
+and `sim.results`.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 
 import numpy as np
 
+from ..obs.trace import get_tracer
 from ..weights import params_to, tree_digest
 from .api import SimRequest, SimResult
 
@@ -123,6 +130,14 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def _root_span(lane: str, requests: Sequence[SimRequest]):
+    """The span of one `run_many` call (`sim.run_many`): the lane, its
+    scenarios and flows; the loop adds the padded sizes."""
+    return get_tracer().span("sim.run_many", attrs={
+        "lane": lane, "scenarios": len(requests),
+        "flows": sum(r.num_flows for r in requests)})
 
 
 def _result(name, r) -> SimResult:
@@ -225,10 +240,11 @@ class FlowSimFastBackend(Backend):
         from ..core.flowsim_fast import run_flowsim_fast_batch
         for r in requests:
             self._check(r)
-        results = run_flowsim_fast_batch(
-            [(r.topo, list(r.flows)) for r in requests], self.device,
-            probes=_batch_probes(requests))
-        return [_result(self.name, r) for r in results]
+        with _root_span(self.name, requests) as sp:
+            results = run_flowsim_fast_batch(
+                [(r.topo, list(r.flows)) for r in requests], self.device,
+                probes=_batch_probes(requests), span=sp)
+            return [_result(self.name, r) for r in results]
 
     def closed_loop(self, topo, config, flows):
         # closed-loop stepping is event-at-a-time; as in the JAX package,
@@ -286,11 +302,12 @@ class M4Backend(Backend):
         from ..core.simulate import simulate_open_loop_batch
         for r in requests:
             self._check(r)
-        results = simulate_open_loop_batch(
-            self.params, self.cfg,
-            [(r.topo, r.config, list(r.flows)) for r in requests],
-            probes=_batch_probes(requests))
-        return [_result(self.name, r) for r in results]
+        with _root_span(self.name, requests) as sp:
+            results = simulate_open_loop_batch(
+                self.params, self.cfg,
+                [(r.topo, r.config, list(r.flows)) for r in requests],
+                probes=_batch_probes(requests), span=sp)
+            return [_result(self.name, r) for r in results]
 
     def closed_loop(self, topo, config, flows):
         from ..core.simulate import M4Simulator
