@@ -621,6 +621,7 @@ def flowsim_states(torch, np, dev, req, events=1000):
     `events` events of flowsim_fast's `run` of req sees on the card: the
     one with the most rounds and the one with the most active flows."""
     from repro_torch.core import flowsim_fast as ff
+    from repro_torch.kernels.waterfill import layout as wf_layout
     args = ff._to_device([ff._pack(req.topo, list(req.flows))], dev)
     _, log = ff._event_scan_core(*args, num_events=events, record=True)
     fid = log["fid"][0].cpu().numpy()
@@ -634,7 +635,9 @@ def flowsim_states(torch, np, dev, req, events=1000):
     counts = np.array([st.sum() for st in states])
     picks = {"most_rounds": int(np.argmax(rounds)),
              "most_active": int(np.argmax(counts))}
-    return args[0], args[1], {
+    cap = args[1]
+    a = wf_layout.dense_incidence(args[0], cap.shape[1])
+    return a, cap, {
         tag: (e, torch.from_numpy(states[e])[None].to(dev), int(rounds[e]),
               int(counts[e])) for tag, e in picks.items()}
 
@@ -2393,9 +2396,10 @@ def fabric_placement(np, dev, req):
     nnz)."""
     from repro_torch.core import flowsim_fast as ff
     from repro_torch.kernels.waterfill import layout as wf_layout
-    a = ff._to_device([ff._pack(req.topo, list(req.flows))], dev)[0]
-    lists = wf_layout.incidence_lists(a)
-    N, L, K = a.shape[1], a.shape[2], lists.flow_links.shape[2]
+    links, cap, *_ = ff._to_device([ff._pack(req.topo, list(req.flows))],
+                                   dev)
+    lists = wf_layout.lists_from_links(links, cap.shape[1])
+    N, L, K = links.shape[1], cap.shape[1], lists.flow_links.shape[2]
     smem, scratch = wf_layout.plan(N, L, K, lists.nnz)
     return ("shared memory" if smem else "device memory", smem, scratch, N,
             L, K, lists.nnz)

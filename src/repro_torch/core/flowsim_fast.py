@@ -1,5 +1,6 @@
 """flowSim on the card: the max-min event loop of `repro.core.flowsim_fast`
-as a Python loop of 2N flow-level events over dense incidence arenas.
+as a Python loop of 2N flow-level events over arenas of per-flow link
+lists.
 
 Each event recomputes the max-min rates of the active flows by
 progressive water-filling, up to `MAX_ROUNDS` = 32 rounds, in one call
@@ -15,21 +16,27 @@ remaining sizes drain linearly.
 
 Arenas carry a leading batch axis B, one scenario per row
 (`run_flowsim_fast` is B = 1); `run_flowsim_fast_batch` pads B scenarios
-to one shape. The loop runs as one program of `repro_torch.core.compiled`
-per arena shape: on a card the event step captured as a CUDA graph and
-replayed 2N times, on the CPU the same step run eagerly. Each new program
+to one shape. The incidence travels as rows, (B, N, K) int32: each flow's
+links from its path, ascending, -1 padded (`_pack`). From them the run
+builds, once and on its device, what the water-filling reads
+(`dispatch.waterfill_incidence`): on a card the kernel's lists
+(`kernels/waterfill/layout.py`), on the CPU the dense incidence of the
+plain version. No dense (B, N, L) array is made on the card's path.
+The loop runs as one program of `repro_torch.core.compiled` per arena
+shape: on a card the event step captured as a CUDA graph and replayed
+2N times, on the CPU the same step run eagerly. Each new program
 counts one in `TRACE_COUNTS` under the JAX package's names
 ("event_scan" for `run_flowsim_fast`, "event_scan_batched" for
 `run_flowsim_fast_batch`). Where JAX takes its pmap path (more than one
 device in `sharding.local_devices`, at least one scenario per device, no
 probes), the batch is sharded across the devices, one program per device
 and shard shape, and one new sharded call counts one
-"event_scan_sharded". On a card the program's incidence lists have
-room for `_list_width` links a flow (4, the longest path of the repo's
-fat trees, or the next power of two above a longer one), so a new width,
-and with it a new capture, comes only with a path longer than any the
-shape has seen; JAX's dense incidence has no such axis. Everything is
-float32, as the reference runs with x64 off.
+"event_scan_sharded". The program's rows (and on a card its incidence
+lists) have room for `_list_width` links a flow (4, the longest path of
+the repo's fat trees, or the next power of two above a longer one), so a
+new width, and with it a new program, comes only with a path longer than
+any the shape has seen; JAX's dense incidence has no such axis.
+Everything is float32, as the reference runs with x64 off.
 The two link sums of a round (unfrozen flows per link, rate in use per
 link) are taken exactly, in float64, and rounded once to float32: the
 reference leaves their summation order to XLA, and an exact sum makes
@@ -39,15 +46,17 @@ departure race cannot break one way on the card and the other on the CPU.
 `probes=` records, every `stride` events, the post-event state into
 ring buffers on the device (`repro_torch.core.probes`): the max-min
 rates of the active set (one more `waterfill_event` call, on stride hits
-only), the exact remaining bytes, and the active flows per link. With
-probes off the loop is unchanged. `record=True`, the per-event log the
-tests read, runs the same program eagerly and uncached.
+only), the exact remaining bytes, and the active flows per link (a
+scatter-add over the rows). With probes off the loop is unchanged.
+`record=True`, the per-event log the tests read, runs the same program
+eagerly and uncached.
 
 A call's host work is in spans (`repro_torch.obs.trace`): `sim.prep`
 (the sizes and `_pack` of each scenario), `sim.upload` (`_to_device`'s
-stacking and pageable copy; `bytes`, `pinned`), `sim.incidence`
-(`width`), then the program's `compiled.run`, `sim.readback` and
-`sim.results`; the caller's span gets N and L.
+stacking and pageable copy of the rows, capacities and schedule; `bytes`,
+`pinned`), `sim.incidence` (`width`: the lists' on a card, None for the
+CPU's dense incidence), then the program's `compiled.run`, `sim.readback`
+and `sim.results`; the caller's span gets N and L.
 """
 from __future__ import annotations
 
@@ -81,29 +90,44 @@ def _list_width(K: int) -> int:
     return max(4, 1 << max(K - 1, 0).bit_length())
 
 
+def _pad_rows(x, width: int):
+    """(B, N, K) rows -> (B, N, width), -1 padded (which the kernel and the
+    scatter-adds skip)."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[2]), value=-1)
+
+
 def _pad_lists(lists: IncidenceLists, width: int) -> IncidenceLists:
-    """The lists with room for `width` links a flow (-1 padded, which the
-    kernel skips) and for N · width entries, so that every call of one
-    program launches with the same shapes and sizes."""
-    B, N, K = lists.flow_links.shape
-    pad = (0, width - K)
-    return IncidenceLists(
-        torch.nn.functional.pad(lists.flow_links, pad, value=-1),
-        lists.link_ptr,
-        torch.nn.functional.pad(lists.flow_entries, pad, value=-1),
-        N * width)
+    """The lists with room for `width` links a flow and for N · width
+    entries, so that every call of one program launches with the same
+    shapes and sizes."""
+    N = lists.flow_links.shape[1]
+    return IncidenceLists(_pad_rows(lists.flow_links, width), lists.link_ptr,
+                          _pad_rows(lists.flow_entries, width), N * width)
 
 
-def _fs_program(a, cap, sizes_bits, arr_times, arr_order, incidence,
+def _link_active(links, active, num_links):
+    """Active flows per link, (B, L) float32: `active` (B, N) bool added
+    over each flow's `links` (B, N, K), -1 entries dropped. The counts are
+    integers below 2**24, exact in float32 in any order of addition."""
+    B = links.shape[0]
+    on = (links >= 0) & active[..., None]
+    idx = torch.where(on, links, num_links).long().view(B, -1)
+    out = torch.zeros(B, num_links + 1, dtype=torch.float32,
+                      device=links.device)
+    return out.scatter_add_(1, idx, on.float().view(B, -1))[:, :num_links]
+
+
+def _fs_program(links, cap, sizes_bits, arr_times, arr_order, incidence,
                 length, probes) -> compiled.Program:
     """The event loop's program for arenas shaped like these: its own
-    copies of the incidence (both forms), capacities, sizes and schedule,
-    the carried state, and one event step over them (with `probes`, also
-    the rings, their hit counter and the read-out)."""
-    B, N, _ = a.shape
-    dev = a.device
-    a, cap, sizes, times, order = (x.clone() for x in (
-        a, cap, sizes_bits, arr_times, arr_order))
+    copies of the rows, the incidence built from them, capacities, sizes
+    and schedule, the carried state, and one event step over them (with
+    `probes`, also the rings, their hit counter and the read-out)."""
+    B, N, _ = links.shape
+    L = cap.shape[1]
+    dev = links.device
+    links, cap, sizes, times, order = (x.clone() for x in (
+        links, cap, sizes_bits, arr_times, arr_order))
     if isinstance(incidence, IncidenceLists):
         inc = IncidenceLists(*(x.clone() for x in incidence[:3]),
                              incidence.nnz)
@@ -118,11 +142,11 @@ def _fs_program(a, cap, sizes_bits, arr_times, arr_order, incidence,
     ptr = torch.zeros(B, dtype=torch.long, device=dev)
     t = torch.zeros(B, dtype=torch.float32, device=dev)
     carried = [remaining, active, fct, ptr, t]
-    owned = [a, cap, sizes, times, order, *inc_bufs, *carried]
+    owned = [links, cap, sizes, times, order, *inc_bufs, *carried]
     bufs = hits = sample = None
     if probes is not None:
         bufs = _probes.init_buffers(probes, batch=B, num_flows=N,
-                                    num_links=a.shape[2], device=dev)
+                                    num_links=L, device=dev)
         hits = torch.zeros((), dtype=torch.long, device=dev)
         owned += [*bufs.values(), hits]
         vals = {
@@ -131,16 +155,15 @@ def _fs_program(a, cap, sizes_bits, arr_times, arr_order, incidence,
             "flow_rate": lambda: dispatch.waterfill_event(
                 inc, cap, active, max_rounds=MAX_ROUNDS)[0],
             "flow_remaining": lambda: remaining / 8.0,     # bits -> bytes
-            "link_active": lambda: torch.bmm(
-                active.float()[:, None], a)[:, 0],
+            "link_active": lambda: _link_active(links, active, L),
         }
 
         def sample(t_ev):
             _probes.record(probes, bufs, hits, t_ev, vals)
 
-    def load(a_, cap_, sizes_, times_, order_, incidence_):
-        for dst, src in zip((a, cap, sizes, times, order),
-                            (a_, cap_, sizes_, times_, order_)):
+    def load(links_, cap_, sizes_, times_, order_, incidence_):
+        for dst, src in zip((links, cap, sizes, times, order),
+                            (links_, cap_, sizes_, times_, order_)):
             dst.copy_(src)
         src = incidence_[:3] if isinstance(incidence_, IncidenceLists) \
             else [incidence_]
@@ -191,35 +214,40 @@ def _fs_program(a, cap, sizes_bits, arr_times, arr_order, incidence,
     return prog
 
 
-def _incidences(arenas):
-    """The water-filling's incidence of each of `arenas`, built once for a
-    run on its device (`dispatch.waterfill_incidence`), and the list width
-    of their program: every list padded to the widest `_list_width` among
-    them (None for the CPU's dense incidence)."""
+def _incidences(rows, num_links, width):
+    """The water-filling's incidence of each of `rows` (one (B, N, K)
+    block of rows per device), built once for a run on its device
+    (`dispatch.waterfill_incidence`), the card's lists padded to `width`
+    links a flow; and that width, or None for the CPU's dense
+    incidence."""
     with torch.inference_mode():
-        incs = [dispatch.waterfill_incidence(a) for a in arenas]
-        if not isinstance(incs[0], IncidenceLists):
-            return incs, None
-        width = max(_list_width(i.flow_links.shape[2]) for i in incs)
-        return [_pad_lists(i, width) for i in incs], width
+        incs = [dispatch.waterfill_incidence(x, num_links) for x in rows]
+    if not isinstance(incs[0], IncidenceLists):
+        return incs, None
+    return [_pad_lists(i, width) for i in incs], width
 
 
-def _event_scan_sharded(a, cap, sizes_bits, arr_times, arr_order, devices):
+def _event_scan_sharded(links, cap, sizes_bits, arr_times, arr_order,
+                        devices):
     """`_event_scan_sharded` of the JAX package: the (B, ...) arenas
     sharded (D, ceil(B/D), ...) by `sharding.shard_leaves`, shard i run on
     `devices[i]` through its program of 2N events, its incidence built on
-    that device (the lists of every shard padded to one width, so the
-    shards share one key), counted once per new sharded key in
-    TRACE_COUNTS["event_scan_sharded"]. Returns the absolute completion
-    times (B, N) on the caller's device, pad replicas dropped."""
-    B, N, L = a.shape
+    that device from its rows (the rows and lists of every shard padded to
+    one width, so the shards share one key), counted once per new sharded
+    key in TRACE_COUNTS["event_scan_sharded"]. Returns the absolute
+    completion times (B, N) on the caller's device, pad replicas
+    dropped."""
+    B, N, _ = links.shape
+    L = cap.shape[1]
     D = len(devices)
-    cols = sharding.shard_leaves([a, cap, sizes_bits, arr_times, arr_order],
-                                 D)
+    width = _list_width(links.shape[2])
+    cols = sharding.shard_leaves([_pad_rows(links, width), cap, sizes_bits,
+                                  arr_times, arr_order], D)
     shards = [[x[i].to(dev) for x in cols] for i, dev in enumerate(devices)]
     with get_tracer().span("sim.incidence") as sp:
-        incs, width = _incidences([args[0] for args in shards])
-        sp.attr("width", width)
+        incs, lists_width = _incidences([args[0] for args in shards], L,
+                                        width)
+        sp.attr("width", lists_width)
     key = (D, cols[0].shape[1], N, L, width)
 
     def build(*args):
@@ -229,26 +257,30 @@ def _event_scan_sharded(a, cap, sizes_bits, arr_times, arr_order, devices):
         [(dev, (*args, inc)) for dev, args, inc in
          zip(devices, shards, incs)])
     return sharding.unshard(
-        torch.stack([out[0].to(a.device) for out in outs]), B)
+        torch.stack([out[0].to(links.device) for out in outs]), B)
 
 
-def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
+def _event_scan_core(links, cap, sizes_bits, arr_times, arr_order,
                      num_events=None, record=False,
                      probes: ProbeConfig = None,
                      entry: str = "event_scan_batched"):
-    """2N events (or `num_events`) over (B, N, L) arenas, through entry
-    point `entry`'s compiled program for this key. Returns the absolute
-    completion times (B, N); with `record` (eager, uncached and
-    uncounted), also a dict of per-event (B, events) records: "fid",
-    "is_arrival", and the water-filling's "rounds" and "capped" (see
+    """2N events (or `num_events`) over arenas of N flows on L links (rows
+    `links` (B, N, K), capacities (B, L)), through entry point `entry`'s
+    compiled program for this key. Returns the absolute completion times
+    (B, N); with `record` (eager, uncached and uncounted), also a dict of
+    per-event (B, events) records: "fid", "is_arrival", and the
+    water-filling's "rounds" and "capped" (see
     `repro_torch.kernels.waterfill.ref.waterfill_event_ref`); with
     `probes`, last the ring buffers (see `core.probes`)."""
-    B, N, L = a.shape
+    B, N, _ = links.shape
+    L = cap.shape[1]
     length = 2 * N if num_events is None else num_events
+    width = _list_width(links.shape[2])
+    links = _pad_rows(links, width)
     with get_tracer().span("sim.incidence") as sp:
-        (incidence,), width = _incidences([a])
-        sp.attr("width", width)
-    args = (a, cap, sizes_bits, arr_times, arr_order, incidence)
+        (incidence,), lists_width = _incidences([links], L, width)
+        sp.attr("width", lists_width)
+    args = (links, cap, sizes_bits, arr_times, arr_order, incidence)
 
     def build(*args):
         return _fs_program(*args, length, probes)
@@ -269,21 +301,23 @@ def _event_scan_core(a, cap, sizes_bits, arr_times, arr_order,
                    for k, v in log.items()}
         return (out[0], log) + out[1:]
     key = (B, N, L, width, num_events, probes)
-    out = compiled.run(TRACE_COUNTS, entry, key, a.device, build, *args)
+    out = compiled.run(TRACE_COUNTS, entry, key, links.device, build, *args)
     return out[0] if len(out) == 1 else out
 
 
 def _pack(topo, flows, n_total=None, l_total=None):
-    """Dense incidence + arrival schedule, optionally padded to a shared
-    shape. Padded flows have empty paths, 8 bits and arrive at t=BIG
-    (strictly after every real event); padded links carry no flow and
-    have capacity 1."""
+    """Incidence rows + capacities + arrival schedule, optionally padded to
+    a shared shape. The rows are (N, K) int32: flow f's links
+    `sorted(set(f.path))`, -1 padded, K the longest path. Padded flows
+    have empty rows, 8 bits and arrive at t=BIG (strictly after every real
+    event); padded links carry no flow and have capacity 1."""
     n = len(flows)
     N = n if n_total is None else n_total
     L = topo.num_links if l_total is None else l_total
-    a = np.zeros((N, L), np.float32)
-    for f in flows:
-        a[f.fid, f.path] = 1.0
+    paths = [sorted(set(f.path)) for f in flows]
+    links = np.full((N, max(map(len, paths), default=0)), -1, np.int32)
+    for f, path in zip(flows, paths):
+        links[f.fid, :len(path)] = path
     sizes = np.full(N, 8.0, np.float64)
     sizes[:n] = [float(f.size) * 8.0 for f in flows]
     cap = np.ones(L, np.float64)
@@ -291,16 +325,22 @@ def _pack(topo, flows, n_total=None, l_total=None):
     t_arr = np.full(N, BIG, np.float32)
     t_arr[:n] = [f.t_arrival for f in flows]
     order = np.argsort(t_arr, kind="stable").astype(np.int32)
-    return a, cap, sizes, t_arr[order], order
+    return links, cap, sizes, t_arr[order], order
 
 
 def _to_device(packed, device):
-    """Stacked numpy arenas -> (B, ...) tensors: float64 sizes and
-    capacities round to float32, as the reference's do with x64 off."""
-    a, cap, sizes, times, order = (np.stack(col) for col in zip(*packed))
+    """Stacked numpy arenas -> (B, ...) tensors: the rows padded to the
+    longest (B, N, K) int32; float64 sizes and capacities round to
+    float32, as the reference's do with x64 off."""
+    links, cap, sizes, times, order = zip(*packed)
+    K = max(x.shape[1] for x in links)
+    links = np.stack([np.pad(x, ((0, 0), (0, K - x.shape[1])),
+                             constant_values=-1) for x in links])
+    cap, sizes, times, order = (np.stack(x) for x in (cap, sizes, times,
+                                                      order))
     f32 = lambda x: torch.from_numpy(x).to(device, torch.float32)  # noqa: E731
-    return (f32(a), f32(cap), f32(sizes), f32(times),
-            torch.from_numpy(order).to(device, torch.long))
+    return (torch.from_numpy(links).to(device), f32(cap), f32(sizes),
+            f32(times), torch.from_numpy(order).to(device, torch.long))
 
 
 def _result(topo, flows, fct_abs, wall, series=None):

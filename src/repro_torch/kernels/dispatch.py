@@ -18,6 +18,7 @@ import torch
 
 from .bipartite import ref as bipartite_ref
 from .fused_gru import ref as gru_ref
+from .waterfill import layout as waterfill_layout
 from .waterfill import ref as waterfill_ref
 
 
@@ -68,15 +69,17 @@ def masked_rowmin(a, share):
     return rowmin_kernel(a, share)
 
 
-def waterfill_incidence(a):
-    """The (B, N, L) 0/1 incidence of a flowSim run in the form its
-    device's `waterfill_event` reads, built once per run: on the CPU the
-    dense incidence in float64 (which saves the plain version a cast per
-    round), on the card `waterfill.layout.incidence_lists(a)`."""
-    if _on_cpu(a):
-        return a.to(torch.float64)
-    from .waterfill.layout import incidence_lists
-    return incidence_lists(a)
+def waterfill_incidence(links, num_links):
+    """The incidence of a flowSim run in the form its device's
+    `waterfill_event` reads, built once per run from its rows `links`
+    (B, N, K) int32 (each flow's links, ascending, -1 padded) over
+    `num_links` links: on the CPU the dense (B, N, L) incidence in float64
+    (which saves the plain version a cast per round), on the card the
+    lists of `waterfill.layout.lists_from_links`."""
+    if _on_cpu(links):
+        return waterfill_layout.dense_incidence(links, num_links,
+                                                torch.float64)
+    return waterfill_layout.lists_from_links(links, num_links)
 
 
 def waterfill_event(incidence, cap, active, *, max_rounds):

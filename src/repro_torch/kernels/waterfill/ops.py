@@ -2,7 +2,7 @@
 
 `waterfill_event` computes one flowSim event's whole water-filling (up to
 32 rounds) for a batch of scenarios in one launch, on the incidence lists
-of `layout.incidence_lists`; `masked_rowmin` computes one round's per-flow
+of `layout.lists_from_links`; `masked_rowmin` computes one round's per-flow
 bottleneck share over a dense incidence (off flowSim's path since the
 event kernel; the counterpart of the JAX package's `masked_rowmin`).
 
@@ -63,7 +63,7 @@ masked_rowmin.launches = 0
 def waterfill_event(lists: IncidenceLists, cap, active, *,
                     max_rounds=MAX_ROUNDS):
     """Max-min rates of the active flows of B scenarios (see
-    `ref.waterfill_event_ref`). lists: the run's `incidence_lists`; cap
+    `ref.waterfill_event_ref`). lists: the run's `lists_from_links`; cap
     (B, L) float32; active (B, N) bool. Returns (rates (B, N) float32,
     rounds (B,) int32, capped (B,) bool). Where the event does not fit in
     shared memory (`layout.plan`), the kernel keeps its flow state in a

@@ -278,8 +278,9 @@ def test_padded_lists_give_the_kernels_arithmetic_the_same_rates():
     from test_torch_waterfill_event import emulate
     rng = np.random.default_rng(3)
     req = ScenarioSpec(num_flows=300, seed=1).to_request()
-    a, cap, *_ = tff._to_device([tff._pack(req.topo, list(req.flows))],
-                                "cpu")
+    links, cap, *_ = tff._to_device([tff._pack(req.topo, list(req.flows))],
+                                    "cpu")
+    a = layout.dense_incidence(links, cap.shape[1])
     lists = layout.incidence_lists(a)
     width = tff._list_width(lists.flow_links.shape[2])
     padded = tff._pad_lists(lists, 2 * width)

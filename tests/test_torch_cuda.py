@@ -166,8 +166,8 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(card):
                            torch.ones(1, 4, device=card))
     assert wf_ops.masked_rowmin.launches == n + 1
     n = wf_ops.waterfill_event.launches
-    a = torch.ones(1, 8, 4, device=card)
-    dispatch.waterfill_event(dispatch.waterfill_incidence(a),
+    links = torch.arange(4, dtype=torch.int32, device=card).repeat(1, 8, 1)
+    dispatch.waterfill_event(dispatch.waterfill_incidence(links, 4),
                              torch.ones(1, 4, device=card),
                              torch.ones(1, 8, dtype=torch.bool, device=card),
                              max_rounds=32)
@@ -196,7 +196,9 @@ def test_kernels_refuse_inputs_that_require_grad(card):
         dispatch.masked_rowmin(a, cap)
     with pytest.raises(RuntimeError, match="plain=True"):
         dispatch.waterfill_event(
-            dispatch.waterfill_incidence(a), cap,
+            dispatch.waterfill_incidence(
+                torch.arange(4, dtype=torch.int32, device=card).repeat(
+                    1, 8, 1), 4), cap,
             torch.ones(1, 8, dtype=torch.bool, device=card), max_rounds=32)
     # the plain keyword keeps the differentiated step off the kernels
     fo, lo = dispatch.gru_cell_pair(p["gru1"], p["gruA"], x, h, xl, hl,
@@ -347,7 +349,9 @@ def test_waterfill_event_kernel_on_a_fabric_state(card):
     from repro_torch.net import meta_fabric
     req = SimRequest.from_scenario(sample_scenario(0, num_flows=2000,
                                                    topo=meta_fabric()))
-    a, cap, *_ = ff._to_device([ff._pack(req.topo, list(req.flows))], card)
+    links, cap, *_ = ff._to_device([ff._pack(req.topo, list(req.flows))],
+                                   card)
+    a = wf_layout.dense_incidence(links, cap.shape[1])
     _, log = ff._event_scan_core(*ff._to_device(
         [ff._pack(req.topo, list(req.flows))], card), num_events=600,
         record=True)
@@ -365,6 +369,35 @@ def test_waterfill_event_kernel_on_a_fabric_state(card):
     _, got_rounds, _ = _event_equal(card, a.cpu(), cap.cpu(),
                                     torch.from_numpy(active)[None])
     assert int(got_rounds) == int(rounds[pick])
+
+
+def test_lists_from_links_on_the_card_equal_the_dense_oracle(card):
+    """The card builds the water-filling's lists from the uploaded rows:
+    equal, field by field, to `incidence_lists` of the dense arena of the
+    same paths and to the CPU's build, on a padded batch of Table-2
+    scenarios and on the fabric."""
+    from repro_torch.core import flowsim_fast as ff
+    from repro_torch.net import meta_fabric
+    for scs in ([sample_scenario(s, num_flows=n)
+                 for s, n in ((0, 2000), (5, 700), (2, 1500))],
+                [sample_scenario(0, num_flows=2000, topo=meta_fabric())]):
+        scenarios = [(sc.topo, sc.generate()) for sc in scs]
+        N = max(len(flows) for _, flows in scenarios)
+        L = max(topo.num_links for topo, _ in scenarios)
+        links, *_ = ff._to_device([ff._pack(topo, flows, n_total=N,
+                                            l_total=L)
+                                   for topo, flows in scenarios], card)
+        a = torch.zeros(len(scs), N, L)
+        for b, (_, flows) in enumerate(scenarios):
+            for f in flows:
+                a[b, f.fid, f.path] = 1.0
+        got = wf_layout.lists_from_links(links, L)
+        on_cpu = wf_layout.lists_from_links(links.cpu(), L)
+        want = wf_layout.incidence_lists(a.to(card))
+        assert got.nnz == want.nnz == on_cpu.nnz
+        for x, c, y in zip(got[:3], on_cpu[:3], want[:3]):
+            assert x.is_cuda and x.dtype == y.dtype
+            assert torch.equal(x, y) and torch.equal(x.cpu(), c)
 
 
 def test_run_on_the_card_matches_the_cpu(card):

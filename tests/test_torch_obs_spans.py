@@ -8,6 +8,9 @@
 - with a trace directory, the JSONL file holds the same names and
   parents, with the attributes at each boundary, and
   `python -m repro_torch.obs --check` passes on it;
+- flowSim's `sim.upload` carries the incidence as rows of per-flow
+  links: its `bytes` at B = 2, N = 64, L = 2000 is within twice
+  B·(N·K + L)·4, far below the dense arena's B·N·L·4;
 - both sinks at once share one clock: each JSONL span starts within
   2 ms of its profiler record;
 - with neither sink on, `span()` is `NULL_SPAN` and opens no profiler
@@ -16,15 +19,18 @@
 """
 import os
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # xdist workers share the host's cores
 
 from repro_torch.core import compiled  # noqa: E402
+from repro_torch.core import flowsim_fast as tff  # noqa: E402
 from repro_torch.core.model import M4Config, init_m4  # noqa: E402
 from repro_torch.obs import __main__ as port_cli  # noqa: E402
 from repro_torch.obs import trace as ttr  # noqa: E402
+from repro_torch.net import FatTree, Flow  # noqa: E402
 from repro_torch.scenarios import ScenarioSpec  # noqa: E402
 from repro_torch.sim import get_backend  # noqa: E402
 
@@ -134,6 +140,34 @@ def test_jsonl_spans_match_and_pass_the_check(lane, backends, reqs,
         if lane == "flowsim_fast":
             assert attrs["sim.incidence"]["width"] is None  # dense, CPU
     assert port_cli.main(["--dir", str(tmp_path), "--check"]) == 0
+
+
+def test_flowsim_upload_bytes_are_the_rows_not_the_dense_arena(
+        monkeypatch, tmp_path):
+    """The counter of the incidence's form: what `sim.upload` copies for
+    B = 2 scenarios of N = 64 flows on L = 2000 links. The event loop is
+    stubbed (it does not touch the upload)."""
+    topo = FatTree(num_racks=10, hosts_per_rack=90, num_spines=10)
+    B, N, L = 2, 64, topo.num_links
+    assert L == 2000
+    rng = np.random.default_rng(0)
+    scenarios = []
+    for _ in range(B):
+        src, dst = rng.choice(topo.num_hosts, (2, N))
+        scenarios.append((topo, [
+            Flow(fid=i, src=int(s), dst=int(d), size=1000,
+                 t_arrival=1e-6 * i, path=topo.path(int(s), int(d), i))
+            for i, (s, d) in enumerate(zip(src, dst))]))
+    K = max(len(f.path) for _, flows in scenarios for f in flows)
+    monkeypatch.setattr(ttr, "_GLOBAL", ttr.Tracer(str(tmp_path)))
+    monkeypatch.setattr(tff, "_event_scan_core", lambda links, *a, **k:
+                        torch.ones(links.shape[:2]))
+    tff.run_flowsim_fast_batch(scenarios, device="cpu")
+    ttr.get_tracer().close()
+    (upload,) = [r["attrs"] for r in ttr.read_spans(str(tmp_path))
+                 if r["name"] == "sim.upload"]
+    assert upload["bytes"] > 0 and upload["pinned"] is False
+    assert upload["bytes"] <= 2 * B * (N * K + L) * 4 < B * N * L * 4 // 20
 
 
 @pytest.mark.parametrize("lane", LANES)

@@ -18,6 +18,9 @@
   size (`size_atol`), the same rtol taken on the quantity that drains;
 - a padded `run_many` trims each scenario's series to its own flows and
   links as JAX's batch path does (rtol 1e-5), and mixed probes raise;
+- flowsim_fast's active flows per link, a scatter-add over the rows,
+  equal the product of the active set with the dense arena of the same
+  paths bitwise, on random active sets and in a probed batch's series;
 - the packet DES's series equals JAX's bitwise; numpy `flowsim` returns
   no series; `content_hash` ignores probes.
 """
@@ -38,6 +41,7 @@ from repro.data.traffic import sample_scenario as jax_scenario  # noqa: E402
 from repro.scenarios import get_suite as jax_suite  # noqa: E402
 from repro.sim import SimRequest as JaxRequest  # noqa: E402
 from repro.sim import get_backend as jax_backend  # noqa: E402
+from repro_torch.core import flowsim_fast as tff  # noqa: E402
 from repro_torch.core import probes as tpr  # noqa: E402
 from repro_torch.core.compiled import Program  # noqa: E402
 from repro_torch.core.model import M4Config  # noqa: E402
@@ -327,6 +331,62 @@ def test_flowsim_fast_run_many_trims_and_refuses_mixed_probes():
     with pytest.raises(ValueError, match="uniform `probes`"):
         backend.run_many([reqs[0], dataclasses.replace(reqs[1],
                                                        probes=None)])
+
+
+def _fs_batch(seeds_flows, more_links=0):
+    """Scenarios, the rows `_pack` writes for them padded to one shape,
+    and the dense (B, N, L) arena of the same paths."""
+    scs = [sample_scenario(s, num_flows=n) for s, n in seeds_flows]
+    scenarios = [(sc.topo, sc.generate()) for sc in scs]
+    N = max(len(flows) for _, flows in scenarios)
+    L = max(topo.num_links for topo, _ in scenarios) + more_links
+    args = tff._to_device([tff._pack(topo, flows, n_total=N, l_total=L)
+                           for topo, flows in scenarios], "cpu")
+    a = np.zeros((len(scs), N, L), np.float32)
+    for b, (_, flows) in enumerate(scenarios):
+        for f in flows:
+            a[b, f.fid, f.path] = 1.0
+    return scenarios, args, torch.from_numpy(a)
+
+
+def test_flowsim_fast_link_active_equals_the_dense_product():
+    _, args, a = _fs_batch(((0, 40), (5, 25), (2, 12)), more_links=3)
+    B, N, L = a.shape
+    links = tff._pad_rows(args[0], tff._list_width(args[0].shape[2]))
+    rng = np.random.default_rng(7)
+    for p in (0.0, 0.3, 0.7, 1.0):
+        active = torch.from_numpy(rng.random((B, N)) < p)
+        got = tff._link_active(links, active, L)
+        want = torch.bmm(active.float()[:, None], a)[:, 0]
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.numpy().tobytes() == want.numpy().tobytes()
+
+
+def test_flowsim_fast_batch_link_active_series_is_the_dense_product():
+    """A probed `run_flowsim_fast_batch` on the CPU: each sample of
+    `link_active` is the active set after its event times the dense arena,
+    the active sets read from a recording run of the same arenas."""
+    stride = 3
+    scenarios, args, a = _fs_batch(((1, 20), (4, 33)))
+    res = tff.run_flowsim_fast_batch(
+        scenarios, device="cpu",
+        probes=tpr.ProbeConfig(stride=stride, max_samples=512))
+    _, log = tff._event_scan_core(*args, record=True)
+    fid, arr = log["fid"].numpy(), log["is_arrival"].numpy()
+    B, N, L = a.shape
+    active = np.zeros((B, N), bool)
+    want = []
+    for e in range(fid.shape[1]):
+        active[np.arange(B), fid[:, e]] = arr[:, e]
+        if e % stride == 0:
+            want.append(torch.bmm(torch.from_numpy(active).float()[:, None],
+                                  a)[:, 0].numpy())
+    for b, ((topo, flows), r) in enumerate(zip(scenarios, res)):
+        s = r.probes
+        assert s["ev"].tolist() == list(range(0, 2 * len(flows), stride))
+        exp = np.stack([want[e // stride][b, :topo.num_links]
+                        for e in s["ev"]])
+        np.testing.assert_array_equal(s["channels"]["link_active"], exp)
 
 
 # ------------------------------------------------------- host backends

@@ -6,6 +6,11 @@ the card. What surrounds it runs here:
 - `layout.incidence_lists` against a plain construction: ragged N and L,
   flows with no links, a padded batch; CSR lists ascending; each flow's
   entries in the lists of its links;
+- `layout.lists_from_links` of the rows `_pack` writes from the flows'
+  paths equals `incidence_lists` of the dense arena of those paths, field
+  by field (ragged and padded batches, paths out of order or with a link
+  twice, empty paths, padded links, a Table-2 scenario, every shard of a
+  sharded batch), and `dense_incidence` of the rows is that arena;
 - `layout.plan`: everything in shared memory at the main path's size,
   the lists and the flow state in device memory past it;
 - `emulate`, a numpy copy of the kernel's arithmetic and control flow in
@@ -31,9 +36,11 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # xdist workers share the host's cores
 
 from repro_torch.core import flowsim_fast as tff  # noqa: E402
+from repro_torch.core import sharding  # noqa: E402
 from repro_torch.data.traffic import sample_scenario  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.waterfill import layout, ref  # noqa: E402
+from repro_torch.net import FatTree, Flow  # noqa: E402
 
 F32 = np.float32
 CSRC = Path(layout.__file__).resolve().parents[1] / "csrc" / "waterfill.cu"
@@ -91,7 +98,9 @@ def test_incidence_lists_match_a_plain_construction(B, N, L):
 
 def test_incidence_lists_of_the_table2_scenarios():
     sc = sample_scenario(1)
-    a, *_ = tff._to_device([tff._pack(sc.topo, sc.generate())], "cpu")
+    links, cap, *_ = tff._to_device([tff._pack(sc.topo, sc.generate())],
+                                    "cpu")
+    a = layout.dense_incidence(links, cap.shape[1])
     lists = layout.incidence_lists(a)
     hops = (a[0] > 0).sum(-1)
     assert lists.flow_links.shape == (1, 2000, int(hops.max()))
@@ -99,6 +108,75 @@ def test_incidence_lists_of_the_table2_scenarios():
     smem, scratch = layout.plan(2000, a.shape[2],
                                 lists.flow_links.shape[2], lists.nnz)
     assert scratch == 0 and 0 < smem <= layout.SMEM_BUDGET
+
+
+def _sampled(*seeds_flows):
+    out = []
+    for seed, n in seeds_flows:
+        sc = sample_scenario(seed, num_flows=n)
+        out.append((sc.topo, sc.generate()))
+    return out
+
+
+def _by_hand(paths):
+    """Flows on a 12-link fat tree with the given paths, as given."""
+    topo = FatTree(num_racks=2, hosts_per_rack=2, num_spines=1)
+    return topo, [Flow(fid=i, src=0, dst=1, size=1000 * (i + 1),
+                       t_arrival=1e-6 * i, path=list(p))
+                  for i, p in enumerate(paths)]
+
+
+# name -> (scenarios, extra padded flows, extra padded links, shards)
+LIST_CASES = {
+    "ragged_padded": lambda: (_sampled((0, 40), (5, 25), (2, 12), (9, 33)),
+                              0, 0, None),
+    "unordered_repeated": lambda: ([_by_hand([[5, 1], [3, 1, 3],
+                                              [7, 2, 2, 0], [11, 4, 9, 6],
+                                              [1]])], 0, 0, None),
+    "empty_paths": lambda: ([_by_hand([[], [2, 0], [], [4, 9, 1, 6], []]),
+                             _by_hand([[], []])], 2, 0, None),
+    "padded_links": lambda: (_sampled((4, 30)), 0, 7, None),
+    "table2": lambda: ([(sample_scenario(1).topo,
+                         sample_scenario(1).generate())], 0, 0, None),
+    "shards_2": lambda: (_sampled((0, 40), (5, 25)) + [
+        _by_hand([[1], [0, 2]])] + _sampled((2, 12), (9, 33)), 0, 0, 2),
+    # the middle shard's paths are shorter than the batch's longest
+    "shards_3": lambda: (_sampled((0, 40), (5, 25)) + [
+        _by_hand([[1], [0, 2]]), _by_hand([[3]])] + _sampled((2, 12)),
+        0, 0, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIST_CASES))
+def test_lists_from_paths_equal_the_dense_oracle(case):
+    """The lists built from the rows `_pack` writes equal, field by field,
+    `incidence_lists` of the dense arena the paths give (`a[fid, path] =
+    1`), for the batch or for every shard of it."""
+    scenarios, more_n, more_l, shards = LIST_CASES[case]()
+    N = max(len(flows) for _, flows in scenarios) + more_n
+    L = max(topo.num_links for topo, _ in scenarios) + more_l
+    links, cap, *_ = tff._to_device(
+        [tff._pack(topo, flows, n_total=N, l_total=L)
+         for topo, flows in scenarios], "cpu")
+    a = np.zeros((len(scenarios), N, L), np.float32)
+    for b, (_, flows) in enumerate(scenarios):
+        for f in flows:
+            a[b, f.fid, f.path] = 1.0
+    a = torch.from_numpy(a)
+    assert cap.shape == (len(scenarios), L)
+    assert torch.equal(layout.dense_incidence(links, L), a)
+    assert torch.equal(dispatch.waterfill_incidence(links, L), a.double())
+    pairs = [(links, a)] if shards is None else list(zip(
+        sharding.shard_leaves(links, shards),
+        sharding.shard_leaves(a, shards)))
+    for rows, dense in pairs:
+        got = layout.lists_from_links(rows, L)
+        want = layout.incidence_lists(dense)
+        for name, x, y in zip(got._fields, got, want):
+            if name == "nnz":
+                assert x == y
+            else:
+                assert x.dtype == y.dtype and torch.equal(x, y), name
 
 
 def test_plan_moves_arrays_to_device_memory_past_shared_memory():
@@ -220,7 +298,8 @@ def _event_states(args, num_events=None):
 
 
 def _check_states(args, states, log, events, fsum_every=None):
-    a, cap = args[0], args[1]
+    cap = args[1]
+    a = layout.dense_incidence(args[0], cap.shape[1])
     a64 = a.double()
     lists = layout.incidence_lists(a)
     for e in events:
@@ -285,9 +364,11 @@ def test_emulation_equals_ref_where_the_cap_binds_and_on_ties():
 
 def test_dispatch_routes_cpu_tensors_to_the_plain_version():
     sc = sample_scenario(3, num_flows=30)
-    a, cap, *_ = tff._to_device([tff._pack(sc.topo, sc.generate())], "cpu")
+    links, cap, *_ = tff._to_device([tff._pack(sc.topo, sc.generate())],
+                                    "cpu")
+    a = layout.dense_incidence(links, cap.shape[1])
     act = torch.from_numpy(np.random.default_rng(0).random((1, 30)) < 0.6)
-    incidence = dispatch.waterfill_incidence(a)
+    incidence = dispatch.waterfill_incidence(links, cap.shape[1])
     assert incidence.dtype == torch.float64 and torch.equal(incidence, a)
     got = dispatch.waterfill_event(incidence, cap, act,
                                    max_rounds=ref.MAX_ROUNDS)
