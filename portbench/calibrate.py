@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """The readings that the comparison's limits are set from, for one cell,
 on the card, at the cell's own sizes: per seed, the program's numbers
-(each pool batch through `run_many`, the timed path, against the plain
-reference) and the control's (the reference in the precision below the
-configuration's, in the program's place).
+(one call of the cell's lane on each pool batch, the timed path,
+against the plain reference) and the control's (the reference in the
+precision below the configuration's, in the program's place); for the
+LM lane also a witness's (the reference with bfloat16 products, the
+configuration's own precision, in the program's place).
 
     python3 portbench/calibrate.py --workload <cell> --seeds 1 2 3 \
-        [--control-seeds 1 2 3] [--fresh-points] [--out calibrate.jsonl]
+        [--control-seeds 1 2 3] [--witness-seeds 1 2] [--fresh-points] \
+        [--out calibrate.jsonl]
 
-`--fresh-points` draws each seed's scenarios from the seed itself in
-place of the mix's `points_seed`: the readings on fresh scenarios,
-beside those on the mix's own, which every run of the benchmark uses.
+`--fresh-points` draws each seed's inputs from the seed itself in place
+of the mix's `points_seed`: the readings on fresh inputs, beside those
+on the mix's own, which every run of the benchmark uses.
 
-One process reads every seed, so set-up is paid once; the program's
-captured programs are dropped between seeds. The benchmark's runs never
-call this.
+One process reads every seed, so set-up is paid once; the lane releases
+the program's state between seeds. The benchmark's runs never call
+this.
 """
 import argparse
 import json
@@ -25,52 +28,40 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def quantiles(per):
-    """Quantiles of all flows' relative gaps, and of the answers'
-    medians."""
-    import numpy as np
-    rel = np.concatenate(per)
-    med = np.array([np.median(r) for r in per])
-    out = {f"q{q:g}": float(np.quantile(rel, q))
-           for q in (0.5, 0.9, 0.99, 0.999, 1.0)}
-    out["answer_medians"] = med.tolist()
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--control-seeds", type=int, nargs="*", default=())
+    ap.add_argument("--witness-seeds", type=int, nargs="*", default=())
     ap.add_argument("--fresh-points", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
-    from portbench.harness import check, gen, lanes, spec
-    from portbench.harness import weights as weights_mod
-    from repro_torch.core import compiled
+    from portbench.harness import check, lanes, spec
 
     if not torch.cuda.is_available():
         print("calibrate: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     cell = spec.find_cell(spec.load_benchmark(), args.workload, False)
-    cfg, traffic = cell.config, cell.traffic
-    lane = lanes.lane(traffic, cfg)
+    traffic = cell.traffic
     out = open(args.out, "a") if args.out else None
     for seed in args.seeds:
         t0 = time.perf_counter()
         if args.fresh_points:
             traffic = dict(traffic, points_seed=seed)
-        pool = gen.pool(cfg, traffic, seed)
-        weights = (weights_mod.make(cfg["model"], seed, dev)
-                   if lane.name == "m4" else None)
+        lane = lanes.lane(traffic, cell.config, cell.root)
+        pool = lane.pool(seed)
+        weights = lane.weights(seed, dev)
         backend = lane.backend(weights, dev)
-        outs = [(k, [r.fcts for r in backend.run_many(lanes.requests(b))])
-                for k, b in enumerate(pool)]
+        inputs = [lane.inputs(b, dev) for b in pool]
+        t_in = time.perf_counter()
+        outs = [(k, lane.call(backend, x)[0]) for k, x in enumerate(inputs)]
+        del inputs
+        lane.release(backend)
         del backend
-        compiled.clear_compiled()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         refs = {k: lane.reference(b, weights, dev)[0]
@@ -78,19 +69,25 @@ def main(argv=None) -> int:
         t2 = time.perf_counter()
         rec = {"workload": cell.name, "seed": seed, "side": "program",
                "points_seed": traffic["points_seed"],
-               **check.numbers(outs, refs),
-               **quantiles(check.gaps(outs, refs)),
-               "program_s": t1 - t0, "reference_s": t2 - t1}
-        if seed in args.control_seeds:
-            ctrl = [(k, lane.reference(b, weights, dev, control=True)[0])
-                    for k, b in enumerate(pool)]
-            crec = {"workload": cell.name, "seed": seed, "side": "control",
-                    **check.numbers(ctrl, refs),
-                    **quantiles(check.gaps(ctrl, refs)),
-                    "control_s": time.perf_counter() - t2}
-            recs = [rec, crec]
-        else:
-            recs = [rec]
+               **lane.numbers(outs, refs), **lane.quantiles(outs, refs),
+               "inputs_s": t_in - t0, "program_s": t1 - t_in,
+               "reference_s": t2 - t1}
+        recs = [rec]
+        for side, seeds, kw in (("control", args.control_seeds,
+                                 {"control": True}),
+                                ("witness", args.witness_seeds,
+                                 {"bf16": True})):
+            if seed not in seeds:
+                continue
+            t3 = time.perf_counter()
+            got = [(k, lane.reference(b, weights, dev, **kw)[0])
+                   for k, b in enumerate(pool)]
+            recs.append({"workload": cell.name, "seed": seed, "side": side,
+                         **lane.numbers(got, refs),
+                         **lane.quantiles(got, refs),
+                         "seconds": time.perf_counter() - t3})
+        rec["checks"] = {k: c["ok"] for k, c in
+                         check.judge(rec, cell.limits).items()}
         for r in recs:
             line = json.dumps(r)
             print(line, flush=True)

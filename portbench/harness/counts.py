@@ -2,9 +2,10 @@
 function of the main path needs at its shapes, and the chip's peaks.
 
 One NVIDIA H100 SXM (NVIDIA's data sheet, dense, at the full 700 W):
-67 TFLOP/s in float32 on the CUDA cores, 3.35 TB/s of HBM3. A
-function's bound is the larger of its operations over the first and its
-bytes over the second; each input byte is read once and each output
+67 TFLOP/s in float32 on the CUDA cores, 989 TFLOP/s in bfloat16 on the
+tensor cores, 3.35 TB/s of HBM3. A function's bound is the larger of
+its operations over the rate of its precision and its bytes over the
+last; each input byte is read once and each output
 byte written once, whatever an implementation reads again. Each
 mathematical operation counts once (a multiply and an add are two), at
 the float32 rate: three TF32 passes that emulate one float32 product
@@ -13,11 +14,13 @@ count as that product.
 from __future__ import annotations
 
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def bound_s(flops: float, nbytes: float) -> float:
-    return max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S)
+def bound_s(flops: float, nbytes: float,
+            peak_flops: float = PEAK_FP32_FLOPS) -> float:
+    return max(flops / peak_flops, nbytes / PEAK_BYTES_PER_S)
 
 
 # ------------------------------------------------------------------ m4
@@ -84,4 +87,50 @@ def waterfill_event_work(B: int, N: int, L: int, K: int, rounds, nnz):
     nbytes = 4 * B * N * K + 4 * B * L + B * N + 4 * B * N + 4 * B + B
     flops = sum(int(r) * (2 * int(z) + 3 * L + 2 * N)
                 for r, z in zip(rounds, nnz))
+    return flops, nbytes
+
+
+# ------------------------------------------------------------- LM decode
+DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
+
+
+def lm_decode_work(m: dict, c: dict, B: int, t: int):
+    """(flops, bytes) of one decode step of the hybrid LM of widths `m`
+    (a configuration's `model`) and constants `c` (`d_conv`), for B
+    sequences at position t: each attends over the t + 1 positions up to
+    its own, whatever number of slots an implementation keeps.
+
+    Operations, each multiply and add once, of the products: per Mamba2
+    layer the input projection 2 D (2 di + 2 N + Hs), the convolution
+    2 K (di + 2 N), the state's update and readout (decay, dt x B^T, add;
+    h C: 5 Hs P N) and the output projection 2 di D; per attention site
+    the projections 2 D Dh (H + 2 Hkv) + 2 H Dh D, the scores and the
+    weighted sum 4 H Dh (t + 1), the feed-forward 6 D F; the head 2 D V.
+    Norms, activations, softplus and RoPE (under 0.5% of them) are left
+    out. Bytes: every weight read once (of the embedding, the B rows
+    looked up), the KV cache of each site read at its t positions and
+    written at one, each SSM and convolution state read and written, the
+    tokens in and the logits out."""
+    if m["family"] != "hybrid" or m["moe"]:
+        raise ValueError(f"no count of a {m['family']} LM's decode step")
+    D, V, F = m["d_model"], m["vocab"], m["d_ff"]
+    H, Hkv, Dh = m["num_heads"], m["num_kv_heads"], m["head_dim"]
+    di, N, P = m["ssm_expand"] * D, m["ssm_state"], m["ssm_head_dim"]
+    Hs, K = di // P, c["d_conv"]
+    Ls = m["num_layers"]
+    sites = Ls // m["hybrid_attn_every"]
+    w = DTYPE_BYTES[m["dtype"]]
+    conv = di + 2 * N
+    ssm_flops = (2 * D * (2 * di + 2 * N + Hs) + 2 * K * conv
+                 + 5 * Hs * P * N + 2 * di * D)
+    attn_flops = (2 * D * Dh * (H + 2 * Hkv) + 2 * H * Dh * D
+                  + 4 * H * Dh * (t + 1) + 6 * D * F)
+    flops = B * (Ls * ssm_flops + sites * attn_flops + 2 * D * V)
+    ssm_params = (D * (2 * di + 2 * N + Hs) + K * conv + conv + 3 * Hs
+                  + di + D + di * D)
+    attn_params = D * Dh * (H + 2 * Hkv) + H * Dh * D + 3 * D * F + 2 * D
+    params = Ls * ssm_params + attn_params + D + D * V + B * D
+    kv = sites * B * 2 * Hkv * Dh * (t + 1)
+    states = 2 * Ls * B * (Hs * P * N + (K - 1) * conv)
+    nbytes = w * (params + kv + states + B * V) + 8 * B
     return flops, nbytes

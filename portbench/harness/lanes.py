@@ -1,99 +1,96 @@
-"""The system under test, one lane per backend of the port, and its
-reference.
+"""The system under test, one lane per path of the port, found by name.
 
-A lane turns the benchmark's plain scenarios into the port's requests
-(`repro_torch.sim.SimRequest`, with the port's own `FatTree`, `NetConfig`
-and `Flow`), builds the backend the window drives
-(`repro_torch.sim.get_backend(lane).run_many`), and runs the plain
-reference of `portbench/reference/` over the same scenarios. The port is
-imported only here and in the run's set-up, never by the reference.
+A traffic mix's `lane` names the file `portbench/lanes/<lane>.py`, which
+`lane()` loads as `spec.reader` loads a metric's reader. The file defines
+`Lane`, a subclass of `Lane` below, and gives the run everything of its
+own: the pool of inputs from the seed, the weights and the backend that
+the window drives, one call on a pool batch, the plain reference of a
+batch (and its control), the numbers compared, and the fields of the run
+that its metrics' readers read. The runner names no lane; a later change
+adds one by adding its file. The port is imported only by the lanes,
+never by the references of `portbench/reference/`.
 """
 from __future__ import annotations
 
-import numpy as np
+from pathlib import Path
+from typing import Dict, List, Tuple
 
-
-def requests(scenarios):
-    """The port's `SimRequest` of each plain scenario."""
-    from repro_torch.net import FatTree, Flow, NetConfig
-    from repro_torch.sim import SimRequest
-    out = []
-    for s in scenarios:
-        n = s.net
-        topo = FatTree(num_racks=n.num_racks, hosts_per_rack=n.hosts_per_rack,
-                       num_spines=n.num_spines, link_gbps=n.link_gbps,
-                       prop_delay_s=n.prop_delay_s, oversub=n.oversub)
-        if topo.num_links != n.num_links:
-            raise RuntimeError("the port's fat tree lays out another number "
-                               f"of links: {topo.num_links} != {n.num_links}")
-        knobs = {k: float(s.point[k]) for k in (
-            "init_window", "buffer_bytes", "dctcp_k", "dcqcn_kmin",
-            "dcqcn_kmax", "timely_tlow", "timely_thigh")}
-        config = NetConfig(cc=str(s.point["cc"]), **knobs)
-        flows = tuple(Flow(fid=i, src=int(s.src[i]), dst=int(s.dst[i]),
-                           size=int(s.size[i]),
-                           t_arrival=float(s.t_arrival[i]),
-                           path=list(s.paths[i]))
-                      for i in range(s.num_flows))
-        out.append(SimRequest(topo=topo, config=config, flows=flows))
-    return out
+from .spec import ROOT, load
 
 
 class Lane:
-    """What one lane needs: the backend, and the reference of a batch."""
+    """What one lane gives the run. `config` and `traffic` are the cell's
+    configuration and traffic files."""
 
-    name = "?"
+    traced_passes = 2      # passes over the pool that a traced run profiles
 
-    def backend(self, weights, device):
+    def __init__(self, config: dict, traffic: dict):
+        self.config = config
+        self.traffic = traffic
+
+    def pool(self, seed: int) -> List[object]:
+        """The batches a run cycles through, as the reference reads them."""
         raise NotImplementedError
 
-    def reference(self, scenarios, weights, device, *, control=False):
-        """(each scenario's completion times as the backend reports them,
-        the counts that the per-layer metrics read)."""
+    def weights(self, seed: int, device):
+        """The weights from `seed` on `device`, or None."""
+        return None
+
+    def backend(self, weights, device):
+        """The system under test, built once in set-up."""
         raise NotImplementedError
 
+    def inputs(self, batch, device):
+        """The program's form of a pool batch, built in set-up."""
+        return batch
 
-class M4Lane(Lane):
-    name = "m4"
+    def call(self, backend, inputs) -> Tuple[object, int, int]:
+        """One call of the window on one pool batch's inputs: (its answers
+        on the host, the units of work done (flows, tokens), the answers
+        attempted)."""
+        raise NotImplementedError
 
-    def __init__(self, model: dict):
-        self.model = model
+    def warmup(self, backend, inputs: List[object]) -> None:
+        """Set-up's calls, after which the window compiles and captures
+        nothing: one on each pool batch, whose shapes may differ."""
+        for x in inputs:
+            self.call(backend, x)
 
-    def backend(self, weights, device):
-        from repro_torch.core.model import M4Config
-        from repro_torch.sim import get_backend
-        keys = ("hidden", "gnn_dim", "mlp_hidden", "gnn_layers", "snap_flows",
-                "snap_links", "max_path", "cfg_dim")
-        cfg = M4Config(**{k: self.model[k] for k in keys})
-        return get_backend("m4", params=weights, cfg=cfg, device=device)
+    def release(self, backend) -> None:
+        """Free what the program keeps beyond `backend` before the
+        reference runs."""
 
-    def reference(self, scenarios, weights, device, *, control=False):
-        from ..reference import m4
-        fct, live = m4.run(scenarios, weights, self.model, device,
-                           tf32=control)
-        return ([fct[b, :s.num_flows] for b, s in enumerate(scenarios)],
-                {"live_edges": live})
+    def reference(self, batch, weights, device, *, control=False):
+        """(the plain reference's answers for a pool batch, the counts its
+        readers read); `control` computes them in the precision below the
+        configuration's, in the program's place."""
+        raise NotImplementedError
+
+    def numbers(self, outs, refs) -> Dict[str, float]:
+        """The numbers compared: `outs` [(pool index, answers)] of every
+        call, `refs` pool index -> the reference's answers."""
+        raise NotImplementedError
+
+    def quantiles(self, outs, refs) -> Dict[str, object]:
+        """Where the numbers compared come from, for the calibration's
+        records: quantiles of the gaps behind them."""
+        return {}
+
+    def failed(self, outs, refs) -> int:
+        """Answers of the window that came back incomplete or not
+        finite."""
+        raise NotImplementedError
+
+    def fields(self, pool) -> dict:
+        """The run's attributes that this lane's readers read."""
+        return {}
 
 
-class FlowSimLane(Lane):
-    name = "flowsim_fast"
-
-    def backend(self, weights, device):
-        from repro_torch.sim import get_backend
-        return get_backend("flowsim_fast", device=device)
-
-    def reference(self, scenarios, weights, device, *, control=False):
-        from ..reference import flowsim
-        fct_abs, rounds = flowsim.run(scenarios, control=control)
-        # the backend reports completion minus arrival, in float64
-        return ([fct_abs[b, :s.num_flows].astype(np.float64) - s.t_arrival
-                 for b, s in enumerate(scenarios)], {"rounds": rounds})
-
-
-def lane(traffic: dict, config: dict) -> Lane:
+def lane(traffic: dict, config: dict, root: Path = ROOT) -> Lane:
+    """The lane that the traffic mix names: `Lane` of
+    portbench/lanes/<lane>.py."""
     name = traffic["lane"]
-    if name == "m4":
-        return M4Lane(config["model"])
-    if name == "flowsim_fast":
-        return FlowSimLane()
-    raise ValueError(f"unknown lane {name!r}")
+    path = root / "portbench" / "lanes" / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"unknown lane {name!r}: no {path}")
+    return load(path, f"portbench.lanes.{name}").Lane(config, traffic)

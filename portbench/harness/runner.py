@@ -1,19 +1,21 @@
 """One run of one cell: set-up, the measured window, the comparison, the
 metrics and the result's line.
 
-Set-up builds the cell's inputs from the seed (the pool's scenarios as
-the port's requests, m4's weights on the card), then runs each pool
-batch once through `run_many`, which captures that batch's program: the
-window replays programs and compiles nothing. The window submits one
-batch after the other (a sweep's closed loop), cycling through the pool,
-and ends with the first pass over the pool that completes after
-`seconds`: every call in it is whole, and every pool batch is in it as
-often as the others. With a trace the window's passes after the first,
-`TRACED_PASSES` of them, run under `torch.profiler`, which the per-layer
-metrics read; the calls of the other passes are the untraced ones that
-the profiler's cost is read against. After the window the peak
-memory is read, the program's state freed, and the reference run over
-every pool batch the window used.
+Everything of the cell's own path comes from its lane
+(`portbench/lanes/<lane>.py`, `lanes.Lane`). Set-up builds the lane's
+inputs and weights from the seed and its backend, then warms it up
+(`Lane.warmup`: a call on each pool batch, which captures that batch's
+program, or on one where all share their shapes): the window compiles
+nothing. The window makes one call after the other (a closed loop),
+cycling through the pool, and ends with the first pass over the pool
+that completes after `seconds`: every call in it is whole, and every
+pool batch is in it as often as the others. With a trace the window's
+passes after the first, the lane's `traced_passes` of them, run under
+`torch.profiler`, which the per-layer metrics read; the calls of the
+other passes are the untraced ones that the profiler's cost is read
+against. After the window the peak memory
+is read, the program's state freed, and the reference run over every
+pool batch the window used.
 """
 from __future__ import annotations
 
@@ -22,14 +24,12 @@ import json
 import subprocess
 import sys
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
-from . import check, gen, lanes, spec, trace as tracing
-from . import weights as weights_mod
+from . import check, lanes, spec, trace as tracing
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-TRACED_PASSES = 2        # passes over the pool profiled in a traced run
 
 
 @dataclass
@@ -37,31 +37,31 @@ class Call:
     pool: int            # index of the pool batch
     start: float         # host clock, seconds
     end: float
-    flows: int
-    scenarios: int
+    units: int           # work done: flows, tokens
+    answers: int         # answers attempted: scenarios, sequences
 
 
-@dataclass
 class Run:
-    """What the metrics' readers read."""
-    cell: spec.Cell
-    setup_s: float
-    calls: List[Call]
-    batch: int
-    num_flows: int                 # flows a scenario (the arena's N)
-    num_links: Dict[int, int]      # pool index -> the batch's padded L
-    nnz: Dict[int, list]           # pool index -> (flow, link) pairs each
-    counts: Dict[int, dict]        # pool index -> the reference's counts
-    trace: Optional[tracing.Trace] = None
-    traced_calls: List[Call] = field(default_factory=list)
+    """What the metrics' readers read: the cell, set-up, the window's
+    calls, the reference's counts per pool batch, the trace and its
+    calls, and the fields that the cell's lane adds (`Lane.fields`) as
+    attributes of their own."""
+
+    def __init__(self, cell: spec.Cell, setup_s: float, calls: List[Call],
+                 counts: Dict[int, dict],
+                 trace: Optional[tracing.Trace] = None,
+                 traced_calls: Optional[List[Call]] = None, **fields):
+        self.cell = cell
+        self.setup_s = setup_s
+        self.calls = calls
+        self.counts = counts            # pool index -> the reference's
+        self.trace = trace
+        self.traced_calls = traced_calls or []
+        self.__dict__.update(fields)
 
     @property
     def model(self) -> dict:
         return self.cell.config["model"]
-
-    def events(self) -> int:
-        """Batched events of the traced calls: 2N a call."""
-        return 2 * self.num_flows * len(self.traced_calls)
 
 
 def forbidden_modules() -> List[str]:
@@ -84,7 +84,6 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     """Run `cell`; returns (result dict, checks dict). Raises on a
     failure the run cannot report. `device` is "cuda" but in the tests,
     which drive the rest of a run on the CPU's plain paths."""
-    import numpy as np
     import torch
 
     chips = cell.entry["chips"]
@@ -94,17 +93,15 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
                     or torch.cuda.device_count() < chips):
         raise SystemExit(f"portbench: the cell needs {chips} CUDA "
                          "device(s); none or too few are visible")
-    cfg, traffic = cell.config, cell.traffic
-    lane = lanes.lane(traffic, cfg)
+    traffic = cell.traffic
+    lane = lanes.lane(traffic, cell.config, cell.root)
 
     # ---- set-up
-    pool = gen.pool(cfg, traffic, seed)
-    weights = (weights_mod.make(cfg["model"], seed, dev)
-               if lane.name == "m4" else None)
+    pool = lane.pool(seed)
+    weights = lane.weights(seed, dev)
     backend = lane.backend(weights, dev)
-    reqs = [lanes.requests(batch) for batch in pool]
-    for batch in reqs:
-        backend.run_many(batch)
+    inputs = [lane.inputs(batch, dev) for batch in pool]
+    lane.warmup(backend, inputs)
     if on_card:
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_start
@@ -115,8 +112,8 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     # and the window has that many passes at least
     calls, outs = [], []
     prof = tracing.Profiler() if traced else None
-    P = len(reqs)
-    traced_span = range(P, (1 + TRACED_PASSES) * P)
+    P = len(inputs)
+    traced_span = range(P, (1 + lane.traced_passes) * P)
     t0 = time.perf_counter()
     i = 0
     while True:
@@ -125,12 +122,11 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
             prof.start()
         with torch.profiler.record_function(tracing.CALL_SPAN):
             c0 = time.perf_counter()
-            res = backend.run_many(reqs[k])
+            answers, units, attempted = lane.call(backend, inputs[k])
             c1 = time.perf_counter()
-        calls.append(Call(pool=k, start=c0, end=c1,
-                          flows=sum(len(r.fcts) for r in res),
-                          scenarios=len(res)))
-        outs.append((k, [np.asarray(r.fcts) for r in res]))
+        calls.append(Call(pool=k, start=c0, end=c1, units=units,
+                          answers=attempted))
+        outs.append((k, answers))
         i += 1
         if prof and i == traced_span.stop:
             s0 = time.perf_counter()
@@ -151,9 +147,8 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
                          f"the JAX package: {found}")
 
     # ---- free the program, then the reference over the pool batches used
-    from repro_torch.core import compiled
-    del backend
-    compiled.clear_compiled()
+    lane.release(backend)
+    del backend, inputs
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -162,16 +157,10 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     for k in sorted({c.pool for c in calls}):
         refs[k], counts[k] = lane.reference(pool[k], weights, dev)
     log(f"reference {time.perf_counter() - t_ref:.3f} s")
-    nums = check.numbers(outs, refs)
-    checks = check.judge(nums, cell.limits)
+    checks = check.judge(lane.numbers(outs, refs), cell.limits)
 
-    run = Run(cell=cell, setup_s=setup_s, calls=calls,
-              batch=traffic["batch"], num_flows=traffic["num_flows"],
-              num_links={k: max(s.net.num_links for s in b)
-                         for k, b in enumerate(pool)},
-              nnz={k: [sum(len(p) for p in s.paths) for s in b]
-                   for k, b in enumerate(pool)},
-              counts=counts)
+    run = Run(cell=cell, setup_s=setup_s, calls=calls, counts=counts,
+              **lane.fields(pool))
     if traced:
         s0 = time.perf_counter()
         run.trace = prof.trace()
@@ -179,7 +168,7 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         log(f"trace of {len(run.trace.dev_op)} device operations read in "
             f"{time.perf_counter() - s0:.3f} s")
     metrics = {}
-    mods = spec.readers(cell.metrics)
+    mods = spec.readers(cell.metrics, cell.root)
     for m in cell.metrics:
         v = mods[m["name"]].read(run)
         if v is not None:
@@ -189,8 +178,8 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
               "count": chips, "memory_peak_bytes": int(peak),
               "power": power_limit() if on_card else None}
     result = {"correct": all(c["ok"] for c in checks.values()),
-              "attempted": sum(c.scenarios for c in calls),
-              "failed": _failed(outs, refs),
+              "attempted": sum(c.answers for c in calls),
+              "failed": lane.failed(outs, refs),
               "metrics": metrics, "device": device}
     if traced:
         tr = run.trace
@@ -214,15 +203,6 @@ def profiler_cost(calls: List[Call], traced_span: range) -> str:
                          f"call ({len(t)}), untraced {sum(u) / len(u):.4f} "
                          f"s ({len(u)})")
     return "profiler cost: " + "; ".join(parts)
-
-
-def _failed(outs, refs) -> int:
-    """Scenarios of the window that came back without a finite time for
-    every flow."""
-    import numpy as np
-    return sum(b >= len(fcts) or len(fcts[b]) != len(want)
-               or not np.isfinite(fcts[b]).all()
-               for k, fcts in outs for b, want in enumerate(refs[k]))
 
 
 def breakdown(tr: tracing.Trace) -> dict:

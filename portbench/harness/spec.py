@@ -4,6 +4,7 @@ its metrics, and the limits of its comparison.
 
     portbench/configs/<config>.json     sizes, network, parameter space
     portbench/traffic/<mix>.json        lane, batch, flows, pool, points
+    portbench/lanes/<lane>.py           the lane's path (`lanes.Lane`)
     portbench/metrics/<reader>.py       read(run), the metric's reader
     portbench/cells/<cell>.json         the comparison's limits
 
@@ -11,8 +12,8 @@ A metric's reader is named by the metric's name up to its first dot:
 `flows_per_s.m4` and `flows_per_s.flowsim` both read with
 `flows_per_s.py`, in the cells that each lists. Its unit, layer and
 source are the metric's entry in `BENCHMARK.json`, and nowhere else.
-A later change adds a cell, a configuration or a metric by adding such
-files and entries; nothing here names one.
+A later change adds a cell, a configuration, a lane or a metric by
+adding such files and entries; nothing here names one.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ class Cell:
     traffic: dict        # the traffic mix's file
     limits: dict         # number -> limit, from cells/<cell>.json
     metrics: List[dict]  # the metric entries this run reports, in order
+    root: Path = ROOT    # the checkout its files were read from
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -64,19 +66,23 @@ def find_cell(bench: dict, name: str, trace: bool,
     kind = "per_layer" if trace else "end_to_end"
     metrics = [m for m in bench[kind] if applies(m, name)]
     return Cell(name=name, entry=entry, config=config, traffic=traffic,
-                limits=limits, metrics=metrics)
+                limits=limits, metrics=metrics, root=root)
+
+
+def load(path: Path, name: str):
+    """The module of the file `path`, under the name `name`."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(name: str, root: Path = ROOT):
     """The reader of metric `name`: portbench/metrics/<base>.py, where
     <base> is the name up to its first dot."""
     base = name.split(".")[0]
-    path = root / "portbench" / "metrics" / f"{base}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench.metrics.{base}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load(root / "portbench" / "metrics" / f"{base}.py",
+                f"portbench.metrics.{base}")
 
 
 def readers(metrics: List[dict], root: Path = ROOT) -> Dict[str, object]:

@@ -1,7 +1,7 @@
 """The fused GRU stages' share of their roofline: the bound of the
 function's work (both stages of an event at the snapshot's shapes, for
 the batch) over the device time of the kernels that do it."""
-from portbench.harness import counts
+from portbench.harness import counts, flows
 
 KERNELS = ("gru_pair_kernel",)
 
@@ -13,6 +13,6 @@ def read(run):
     t = tr.op_seconds(KERNELS)
     if t <= 0:
         return None
-    bound = run.events() * counts.bound_s(*counts.gru_work(run.model,
+    bound = flows.events(run) * counts.bound_s(*counts.gru_work(run.model,
                                                            run.batch))
     return 100.0 * bound / t

@@ -15,5 +15,5 @@ def read(run):
         events = 2 * run.num_flows
         live = float(run.counts[c.pool]["live_edges"].sum())
         flops += events * counts.m4_step_flops(
-            run.model, run.batch, live / events, c.flows / events)
+            run.model, run.batch, live / events, c.units / events)
     return 100.0 * flops / tr.window_s / counts.PEAK_FP32_FLOPS

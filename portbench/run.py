@@ -4,10 +4,11 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-Runs one cell of `BENCHMARK.json` from the root of a checkout: set-up
-(inputs and weights from the seed, each pool batch run once so that its
-program is captured), a window of `--seconds`, the comparison with the
-plain reference, and one JSON line, the last of standard output, with
+Runs one cell of `BENCHMARK.json` from the root of a checkout through
+its lane (`portbench/lanes/<lane>.py`): set-up (inputs and weights from
+the seed, a warm-up that captures every program the window runs), a
+window of `--seconds`, the comparison with the plain reference, and one
+JSON line, the last of standard output, with
 `correct`, `attempted`, `failed`, `metrics` and `device` (and, traced,
 `breakdown`), then `checks`: each number compared with its limit, which
 are also the last lines of standard error. `--trace 0` reports the

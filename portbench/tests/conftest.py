@@ -31,6 +31,34 @@ def small_cell(name: str, trace: bool = False, flows: int = 60,
     return cell
 
 
+LM = "zamba2-2.7b.conv-b128"
+
+
+def smoke_arch(name: str):
+    """The port's config `name` at the size of its CPU smoke tests."""
+    from repro_torch import configs
+    return configs.reduce_for_smoke(configs.get_config(name))
+
+
+def small_lm_cell(monkeypatch, trace: bool = False, batch: int = 3,
+                  prompt: int = 6, steps: int = 10) -> spec.Cell:
+    """The LM cell at a CPU test's size: the port's config cut by
+    `reduce_for_smoke` (get_config patched to return it, and the cell's
+    widths stated to match), `batch` sessions of `prompt` tokens that
+    decode `steps` more, all of them sampled."""
+    from repro_torch import configs
+    cell = copy.deepcopy(spec.find_cell(spec.load_benchmark(), LM, trace))
+    small = smoke_arch(cell.config["arch"])
+    monkeypatch.setattr(configs, "get_config", lambda name: small)
+    for k in cell.config["model"]:
+        v = getattr(small, k)
+        cell.config["model"][k] = (str(v).removeprefix("torch.")
+                                   if isinstance(v, torch.dtype) else v)
+    cell.traffic.update(batch=batch, prompt=prompt, steps=steps,
+                        sample=batch, prompt_block=2, pool=2)
+    return cell
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():

@@ -61,3 +61,44 @@ def test_m4_step_flops_by_hand():
     got = counts.m4_step_flops(MODEL, 1, live_edges=100, arrivals=0.5)
     assert got == pytest.approx(want, rel=1e-12)
     assert got == pytest.approx(0.785e9, rel=2e-3)
+
+
+def test_lm_decode_step_by_hand_at_the_smoke_size():
+    """One decode step of zamba2-2.7b at `reduce_for_smoke`'s widths (D 64,
+    V 256, F 128, 4 heads of 16 over 2 kv heads, di 128, state 16, head
+    16, 4 layers, a site every 2, float32), B 2 at position 5, and its
+    weights read against the port's own parameter tree."""
+    import torch
+    from portbench.tests.conftest import smoke_arch
+    from repro_torch.models import init_params
+    cfg = smoke_arch("zamba2-2.7b")
+    m = {k: getattr(cfg, k) for k in (
+        "family", "moe", "d_model", "vocab", "d_ff", "num_heads",
+        "num_kv_heads", "head_dim", "ssm_expand", "ssm_state",
+        "ssm_head_dim", "num_layers", "hybrid_attn_every")}
+    m["dtype"] = "float32"
+    ssm = (2 * 64 * (256 + 32 + 8) + 2 * 4 * 160 + 5 * 8 * 16 * 16
+           + 2 * 128 * 64)
+    attn = (2 * 64 * 16 * (4 + 4) + 2 * 4 * 16 * 64 + 4 * 4 * 16 * 6
+            + 6 * 64 * 128)
+    flops, nbytes = counts.lm_decode_work(m, {"d_conv": 4}, 2, 5)
+    assert flops == 2 * (4 * ssm + 2 * attn + 2 * 64 * 256)
+    params = 4 * (64 * 296 + 4 * 160 + 160 + 24 + 128 + 64 + 128 * 64) \
+        + (64 * 16 * 8 + 4 * 16 * 64 + 3 * 64 * 128 + 128) + 64 \
+        + 64 * 256 + 2 * 64
+    leaves = sum(x.numel() for x in _leaves(
+        init_params(torch.Generator(), cfg, device="meta")))
+    assert params == leaves - 256 * 64 + 2 * 64   # B rows of the table
+    kv = 2 * 2 * 2 * 2 * 16 * 6                   # sites, B, k and v, t + 1
+    states = 2 * 4 * 2 * (8 * 16 * 16 + 3 * 160)  # read and written
+    assert nbytes == 4 * (params + kv + states + 2 * 256) + 8 * 2
+    bf16 = counts.bound_s(flops, nbytes, peak_flops=counts.PEAK_BF16_FLOPS)
+    assert bf16 == nbytes / 3.35e12                # bound by bytes
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -9,7 +9,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from portbench.harness import runner, spec
+from portbench.harness import lanes, runner, spec
 from portbench.harness.runner import Call, Run
 from portbench.harness.trace import Trace
 
@@ -97,7 +97,8 @@ def _fake_run(cell, traced=True):
                host=[(0, 2_000_000_000, "portbench.run_many")])
     return Run(cell=cell, setup_s=12.5, calls=calls, batch=8,
                num_flows=200, num_links={0: 128, 1: 128},
-               nnz={0: [8000] * 8, 1: [8000] * 8},
+               nnz={0: [8000] * 8, 1: [8000] * 8}, steps=64, prompt=1020,
+               max_len=1084,
                counts={k: {"live_edges": np.full(8, 1e5),
                            "rounds": np.ones((400, 8))}
                        for k in (0, 1)},
@@ -105,10 +106,13 @@ def _fake_run(cell, traced=True):
                traced_calls=calls if traced else [])
 
 
+WORKLOADS = [w["name"] for w in spec.load_benchmark()["workloads"]]
+
+
 @pytest.mark.parametrize("traced", [False, True])
-@pytest.mark.parametrize("workload", ["ft8-table2.m4-b8",
-                                      "meta-fabric.flowsim-b8"])
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_every_metric_reads_a_mocked_run(workload, traced):
+    """A mocked run of each lane, with the fields of every lane."""
     cell = spec.find_cell(spec.load_benchmark(), workload, traced)
     run = _fake_run(cell, traced)
     for name, mod in spec.readers(cell.metrics).items():
@@ -125,6 +129,9 @@ def test_every_metric_reads_a_mocked_run(workload, traced):
         # 1.2 to 1.3 s
         assert spec.reader("host_gap_ms.flowsim").read(run) == \
             pytest.approx(100.0)
+        # 1.2 s of device operations over 2 calls of 64 steps
+        assert spec.reader("lm_step_us").read(run) == \
+            pytest.approx(1.2e6 / 128)
 
 
 @pytest.mark.parametrize("traced", [False, True])
@@ -247,7 +254,7 @@ def test_run_without_a_card_fails_and_prints_nothing():
 
 def test_traced_run_profiles_the_passes_after_the_first():
     """A traced run on the CPU's plain paths: the window has the first
-    pass and `TRACED_PASSES` more, the calls read as traced are those of
+    pass and `Lane.traced_passes` more, the calls read as traced are those of
     the profiled passes, the profiler's cost is logged against the
     untraced calls, and the window's device metrics read nothing where
     no device operation ran."""
@@ -259,7 +266,7 @@ def test_traced_run_profiles_the_passes_after_the_first():
                                     log=logs.append, device="cpu")
     P = cell.traffic["pool"]
     assert result["correct"], checks
-    assert result["attempted"] == (1 + runner.TRACED_PASSES) * P * 2
+    assert result["attempted"] == (1 + lanes.Lane.traced_passes) * P * 2
     cost = [s for s in logs if s.startswith("profiler cost:")]
     assert len(cost) == 1 and all(f"batch {k}: traced" in cost[0]
                                   for k in range(P))

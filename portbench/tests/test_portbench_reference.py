@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from portbench.harness import gen, lanes, weights
+from portbench.harness.flows import requests
 from portbench.tests.conftest import small_cell
 
 SEEDS = [3, 2 ** 31 + 11]
@@ -22,7 +23,7 @@ def test_m4_reference_matches_port(seed, flows):
     lane = lanes.lane(cell.traffic, cell.config)
     w = weights.make(cell.config["model"], seed, "cpu")
     for batch in _pool(cell, seed):
-        got = lane.backend(w, "cpu").run_many(lanes.requests(batch))
+        got = lane.backend(w, "cpu").run_many(requests(batch))
         want, counts = lane.reference(batch, w, "cpu")
         for r, ref in zip(got, want):
             np.testing.assert_allclose(r.fcts, ref, rtol=2e-6, atol=0)
@@ -36,7 +37,7 @@ def test_m4_reference_at_published_widths():
     lane = lanes.lane(cell.traffic, cell.config)
     w = weights.make(cell.config["model"], 5, "cpu")
     batch = _pool(cell, 5)[0]
-    got = lane.backend(w, "cpu").run_many(lanes.requests(batch))
+    got = lane.backend(w, "cpu").run_many(requests(batch))
     want, _ = lane.reference(batch, w, "cpu")
     for r, ref in zip(got, want):
         np.testing.assert_allclose(r.fcts, ref, rtol=2e-6, atol=0)
@@ -48,7 +49,7 @@ def test_flowsim_reference_matches_port_bitwise(seed, flows):
     cell = small_cell("meta-fabric.flowsim-b8", flows=flows)
     lane = lanes.lane(cell.traffic, cell.config)
     for batch in _pool(cell, seed):
-        got = lane.backend(None, "cpu").run_many(lanes.requests(batch))
+        got = lane.backend(None, "cpu").run_many(requests(batch))
         want, counts = lane.reference(batch, None, "cpu")
         for r, ref in zip(got, want):
             np.testing.assert_array_equal(r.fcts, ref)

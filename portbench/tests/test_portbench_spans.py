@@ -10,7 +10,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-from portbench.harness import runner, spans, spec
+from portbench.harness import lanes, runner, spans, spec
 from portbench.harness import trace as tracing
 from portbench.harness.runner import Call, Run
 from portbench.harness.trace import CALL_SPAN, Trace
@@ -122,7 +122,7 @@ def test_traced_cpu_run_reads_the_programs_spans(name, metrics,
     tr, = seen
     inside = [(s, e) for s, e, n in tr.host if n == "sim.prep"
               and any(c0 <= s <= c1 for c0, c1 in tr.calls)]
-    assert len(inside) == len(tr.calls) == runner.TRACED_PASSES * \
+    assert len(inside) == len(tr.calls) == lanes.Lane.traced_passes * \
         cell.traffic["pool"]
     for s, e, n in tr.host:
         if n in ("sim.prep", "sim.upload", "sim.results", "compiled.run"):
